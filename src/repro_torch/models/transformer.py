@@ -1,0 +1,209 @@
+"""Block assembly of the port, ``attn`` blocks: head blocks + a repeated
+group + tail blocks, as in ``repro.models.transformer``.  The JAX package
+scans the group over stacked layer params; here the group's params are a
+per-layer list and the loop is a Python loop, while the group's cache keeps
+its leading ``reps`` axis (layer i writes ``cache[...][i]`` in place).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.decode_attention.ref import gather_pages
+from repro_torch.models.flash import attention_any
+from repro_torch.models.kvcache import check_ported
+from repro_torch.models.layers import (_split_heads, attention_init,
+                                       mlp_apply, mlp_init, rmsnorm,
+                                       rmsnorm_init, rope, torch_dtype)
+
+Params = Dict[str, Any]
+
+
+@dataclasses.dataclass
+class Ctx:
+    mode: str                                  # 'prefill' | 'decode'
+    q_pos: torch.Tensor                        # (B, S)
+    cache_len: Optional[torch.Tensor] = None   # () or (B,) int32
+    # paged KV serving: (B, max_pages) int32 block table -- position p of
+    # row b lives at pool row pages[b, p // ps], offset p % ps
+    pages: Optional[torch.Tensor] = None
+    # dense ragged writes: whether every row's S new positions fit below
+    # T_max (checked once per forward; writes past T_max are dropped)
+    dense_fits: Optional[bool] = None
+
+    @property
+    def ragged(self) -> bool:
+        return self.cache_len is not None and self.cache_len.dim() == 1
+
+    @property
+    def paged(self) -> bool:
+        return self.pages is not None
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
+               device) -> Params:
+    if kind != "attn":
+        raise NotImplementedError(
+            f"block kind {kind!r} is not ported to repro_torch yet (ROADMAP "
+            "Queue 1, 'other architectures')")
+    d = cfg.d_model
+    dt = torch_dtype(cfg)
+    return {
+        "norm1": rmsnorm_init(d, dt, device),
+        "attn": attention_init(gen, cfg, device),
+        "norm2": rmsnorm_init(d, dt, device),
+        "mlp": mlp_init(gen, d, cfg.d_ff, dt, device),
+    }
+
+
+def stack_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
+    head, reps, group, tail = cfg.layer_program
+    return {
+        "head": [block_init(gen, cfg, k, device) for k in head],
+        "tail": [block_init(gen, cfg, k, device) for k in tail],
+        "group": {f"b{i}": [block_init(gen, cfg, k, device)
+                            for _ in range(reps)]
+                  for i, k in enumerate(group)},
+    }
+
+
+# ---------------------------------------------------------------------------
+# attention with cache plumbing
+# ---------------------------------------------------------------------------
+
+
+def _self_attention(p: Params, cfg: ModelConfig, xn: torch.Tensor, ctx: Ctx,
+                    cache: Optional[Params]) -> torch.Tensor:
+    """Attention output (B,S,D); writes this step's K/V into ``cache``."""
+    nq, nkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    b, s, _ = xn.shape
+    q = rope(_split_heads(xn @ p["wq"], nq, dh), ctx.q_pos, cfg.rope_theta)
+    k_new = rope(_split_heads(xn @ p["wk"], nkv, dh), ctx.q_pos,
+                 cfg.rope_theta)
+    v_new = _split_heads(xn @ p["wv"], nkv, dh)
+    qg = q.reshape(b, s, nkv, nq // nkv, dh)
+
+    if cache is None or ctx.mode == "prefill":
+        out = attention_any(qg, k_new, v_new, ctx.q_pos, ctx.q_pos)
+        if cache is not None:
+            _write_kv(cache, k_new, v_new, ctx)
+    else:  # decode
+        _write_kv(cache, k_new, v_new, ctx)
+        k_all, v_all = cache["k"], cache["v"]
+        if cfg.use_pallas_kernels:
+            # hand-written ragged decode kernel: q (B,S,G,Qh,D) against the
+            # cache (B,T,G,D) or the (n_pages,ps,G,D) pool through the
+            # block table; per-row lengths and the S>1 window in-kernel
+            out = decode_attention(qg, k_all, v_all, ctx.cache_len + 1,
+                                   block_tables=ctx.pages)
+        else:
+            if ctx.paged:
+                k_all = gather_pages(k_all, ctx.pages)
+                v_all = gather_pages(v_all, ctx.pages)
+            t = k_all.shape[1]
+            k_pos = torch.arange(t, dtype=torch.int32,
+                                 device=xn.device).expand(b, t)
+            lim = (ctx.cache_len[:, None] if ctx.ragged
+                   else ctx.cache_len) + s
+            out = attention_any(qg, k_all, v_all, ctx.q_pos, k_pos, None,
+                                k_pos < lim)
+    return out.reshape(b, s, nq * dh) @ p["wo"]
+
+
+def _page_translate(ctx: Ctx, b: int, s: int, page_size: int):
+    """(pool row, in-page offset), both (B, S) int64, for the S new tokens
+    each row writes at positions cache_len[b]..cache_len[b]+S-1.  Vacant
+    table entries (<= 0) AND positions past the table's width go to pool
+    row 0, the trash page -- never to the last table column, which would
+    corrupt the row's newest live page."""
+    ln = ctx.cache_len
+    ln_b = ln[:, None] if ctx.ragged else ln.reshape(1, 1).expand(b, 1)
+    pos = ln_b.long() + torch.arange(s, device=ln.device)[None, :]
+    tbl = torch.clamp(ctx.pages, min=0).long()                  # (B, MP)
+    pidx = pos // page_size
+    prow = torch.take_along_dim(
+        tbl, torch.clamp(pidx, max=tbl.shape[1] - 1), dim=1)
+    prow = torch.where(pidx >= tbl.shape[1], torch.zeros_like(prow), prow)
+    return prow, pos % page_size
+
+
+def _write_kv(cache: Params, k: torch.Tensor, v: torch.Tensor,
+              ctx: Ctx) -> None:
+    """Write the S new tokens' K/V (B,S,nkv,dh) at each row's frontier, in
+    place."""
+    b, s = k.shape[:2]
+    ln = ctx.cache_len
+    if ctx.paged:
+        # rows own disjoint pages, so index pairs never collide across live
+        # rows (vacant rows all land on the trash page)
+        prow, poff = _page_translate(ctx, b, s, cache["k"].shape[1])
+        cache["k"][prow, poff] = k
+        cache["v"][prow, poff] = v
+        return
+    t = cache["k"].shape[1]
+    if ctx.ragged:
+        rows = torch.arange(b, device=k.device)[:, None].expand(b, s)
+        idx = ln[:, None].long() + torch.arange(s, device=k.device)[None, :]
+        if ctx.dense_fits is None:
+            ctx.dense_fits = int(ln.max()) + s <= t
+        if ctx.dense_fits:
+            cache["k"][rows, idx] = k
+            cache["v"][rows, idx] = v
+        else:                      # drop writes past T_max, as a scatter does
+            keep = idx < t
+            cache["k"][rows[keep], idx[keep]] = k[keep]
+            cache["v"][rows[keep], idx[keep]] = v[keep]
+        return
+    # one offset for the batch: a slice update whose start is clamped so
+    # the S positions fit (dynamic_update_slice's rule)
+    start = torch.clamp(ln.long(), 0, t - s)
+    idx = start + torch.arange(s, device=k.device)
+    cache["k"].index_copy_(1, idx, k)
+    cache["v"].index_copy_(1, idx, v)
+
+
+# ---------------------------------------------------------------------------
+# block / stack apply
+# ---------------------------------------------------------------------------
+
+
+def block_apply(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
+                ctx: Ctx, cache: Optional[Params]) -> torch.Tensor:
+    if kind != "attn":
+        raise NotImplementedError(
+            f"block kind {kind!r} is not ported to repro_torch yet")
+    x = x + _self_attention(p["attn"], cfg,
+                            rmsnorm(p["norm1"], x, cfg.rms_eps), ctx, cache)
+    return x + mlp_apply(p["mlp"], rmsnorm(p["norm2"], x, cfg.rms_eps))
+
+
+def stack_apply(params: Params, cfg: ModelConfig, x: torch.Tensor, ctx: Ctx,
+                cache: Optional[Params]) -> torch.Tensor:
+    """Run head blocks, ``reps`` repetitions of the group, tail blocks.
+    ``cache`` (if given) is written in place."""
+    check_ported(cfg)
+    head, reps, group, tail = cfg.layer_program
+    for i, kind in enumerate(head):
+        c = cache["head"][i] if cache is not None else None
+        x = block_apply(params["head"][i], cfg, kind, x, ctx, c)
+    for r in range(reps):
+        for j, kind in enumerate(group):
+            c = None
+            if cache is not None:
+                c = {name: leaf[r]
+                     for name, leaf in cache["group"][f"b{j}"].items()}
+            x = block_apply(params["group"][f"b{j}"][r], cfg, kind, x, ctx,
+                            c)
+    for i, kind in enumerate(tail):
+        c = cache["tail"][i] if cache is not None else None
+        x = block_apply(params["tail"][i], cfg, kind, x, ctx, c)
+    return x

@@ -24,3 +24,8 @@ def small_tokenizer(json_grammar):
 @pytest.fixture()
 def rng():
     return random.Random(1234)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (skips without one)")

@@ -1,0 +1,130 @@
+"""Greedy serving through the port (``repro_torch.serving``) against
+``repro``'s on the same weights, tokenizer, grammar and prompts: token ids,
+statuses, interventions and forward counts must be equal, for the
+single-request path and for the continuous-batching scheduler (paged with a
+pool small enough to force recompute preemption, and contiguous), with
+DOMINO and unconstrained rows in one batch.  float32 on the CPU; the port's
+kernel wrappers take their plain versions here."""
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.base import ModelConfig
+from repro.models import build_model
+from repro.serving import (ConstraintSpec, DecodeParams, EngineConfig,
+                           Request, ServingEngine)
+from repro_torch.configs.base import ModelConfig as TModelConfig
+from repro_torch.models import build_model as t_build_model
+from repro_torch.models.convert import params_from_numpy
+from repro_torch.serving import ConstraintSpec as TConstraintSpec
+from repro_torch.serving import DecodeParams as TDecodeParams
+from repro_torch.serving import EngineConfig as TEngineConfig
+from repro_torch.serving import Request as TRequest
+from repro_torch.serving import ServingEngine as TServingEngine
+
+BASE = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
+            dtype="float32", max_seq_len=512)
+PROMPTS = ["a: ", "some much longer json prompt here: ", "x", "record -> ",
+           "data: "]
+
+
+@pytest.fixture(scope="module")
+def engines(small_tokenizer, json_grammar):
+    """(JAX engine, port engine) pairs keyed by kernel route."""
+    tok = small_tokenizer
+    out = {}
+    for kernels in (False, True):
+        cfg = ModelConfig(arch_id="ts", family="dense",
+                          vocab_size=tok.vocab_size, **BASE,
+                          use_pallas_kernels=kernels)
+        tcfg = TModelConfig(arch_id="ts", family="dense",
+                            vocab_size=tok.vocab_size, **BASE,
+                            use_pallas_kernels=kernels)
+        m = build_model(cfg)
+        params = m.init(jax.random.PRNGKey(0))
+        tparams = params_from_numpy(jax.tree.map(np.asarray, params), tcfg)
+        eng = ServingEngine(m, params, tok, json_grammar,
+                            EngineConfig(mode="domino", max_tokens=12),
+                            max_len=256)
+        teng = TServingEngine(t_build_model(tcfg), tparams, tok,
+                              json_grammar,
+                              TEngineConfig(mode="domino", max_tokens=12),
+                              max_len=256, device="cpu")
+        for e in (eng, teng):
+            e.register_grammar("json", json_grammar)
+        out[kernels] = (eng, teng)
+    return out
+
+
+def _same(ref, got):
+    assert len(ref) == len(got)
+    for r, g in zip(ref, got):
+        assert g.token_ids == r.token_ids
+        assert g.status == r.status
+        assert g.n_interventions == r.n_interventions
+        assert g.n_forward_passes == r.n_forward_passes
+        assert g.n_preemptions == r.n_preemptions
+        assert g.text == r.text
+
+
+@pytest.mark.parametrize("prompt", PROMPTS[:3])
+def test_generate_matches(engines, prompt):
+    eng, teng = engines[False]
+    _same([eng.generate(prompt)], [teng.generate(prompt)])
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_generate_batch_matches_with_slot_reuse(engines, paged):
+    """Five requests through two slots: slots are reused as rows
+    finish."""
+    eng, teng = engines[False]
+    kw = dict(max_batch=2, paged=paged)
+    _same(eng.generate_batch(PROMPTS, **kw),
+          teng.generate_batch(PROMPTS, **kw))
+
+
+def test_generate_batch_preempts_and_matches_through_kernel_route(engines):
+    """A 6-page pool cannot hold two growing rows: the scheduler
+    recompute-preempts, and outputs still match the reference (kernel
+    route on: the JAX kernel interpreted, the port's plain version)."""
+    eng, teng = engines[True]
+    kw = dict(max_batch=2, page_size=8, n_pages=7)
+    got = teng.generate_batch(PROMPTS, **kw)
+    assert teng.last_batch_stats["n_preempt"] > 0
+    _same(eng.generate_batch(PROMPTS, **kw), got)
+    singles = [teng.generate(p) for p in PROMPTS]
+    assert [s.token_ids for s in singles] == [g.token_ids for g in got]
+
+
+def test_mixed_domino_and_unconstrained_rows_match(engines):
+    eng, teng = engines[False]
+    reqs, treqs = [], []
+    for i, p in enumerate(PROMPTS):
+        mode = "domino" if i % 2 == 0 else "unconstrained"
+        grammar = "json" if mode == "domino" else None
+        reqs.append(Request(p, ConstraintSpec(grammar=grammar, mode=mode),
+                            DecodeParams(max_tokens=10)))
+        treqs.append(TRequest(p, TConstraintSpec(grammar=grammar,
+                                                 mode=mode),
+                              TDecodeParams(max_tokens=10)))
+    _same(eng.generate_batch(reqs, max_batch=3),
+          teng.generate_batch(treqs, max_batch=3))
+
+
+def test_speculative_requests_are_refused(engines):
+    _, teng = engines[False]
+    req = TRequest("a: ", TConstraintSpec(grammar="json", mode="domino"),
+                   TDecodeParams(speculative=True))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        teng.generate(req)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        teng.generate_batch([req])
+
+
+def test_engine_defaults_to_the_card(engines, small_tokenizer):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible")
+    _, teng = engines[False]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TServingEngine(teng.model, teng.params, small_tokenizer)

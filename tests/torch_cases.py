@@ -1,0 +1,55 @@
+"""Kernel inputs shared by the port's tests, made with numpy from a seed so
+that the JAX package and the port see the same values.  Imports neither
+``jax`` nor ``repro``, so the ``cuda`` tests that use it also run on a
+machine that has only PyTorch."""
+import numpy as np
+
+# decode attention: B rows, G kv groups of QH query heads, head dim D,
+# pool pages of PS tokens, MP table columns a row
+B, G, QH, D, PS, MP = 4, 2, 2, 32, 8, 8
+LENS = [0, 1, 17, 40]
+
+
+def mask_case(b, v, seed):
+    """Logits (B, V) f32 and packed uint32 words (B, ceil(V/32)) with the
+    tail bits past V zero: row 0 random, row 1 (if any) all illegal,
+    row 2 (if any) ties among legal tokens at the maximum."""
+    rng = np.random.default_rng(seed)
+    logits = rng.normal(size=(b, v)).astype(np.float32)
+    w = -(-v // 32)
+    words = rng.integers(0, 2 ** 32, size=(b, w), dtype=np.uint64) \
+        .astype(np.uint32)
+    if v % 32:
+        words[:, -1] &= np.uint32((1 << (v % 32)) - 1)
+    if b > 1:
+        words[1] = 0
+    if b > 2:
+        words[2] = 0xFFFFFFFF
+        if v % 32:
+            words[2, -1] = np.uint32((1 << (v % 32)) - 1)
+        logits[2, ::3] = 5.0
+    return logits, words
+
+
+def paged_case(s_win, seed, garbage=1e3):
+    """q (B,S,G,QH,D), k/v pools (1 + B*MP, PS, G, D), lengths (B,) and a
+    block table (B, MP): each row's pages are a shuffled draw, vacancies
+    -1; pages no row owns (and the trash page) hold ``garbage``."""
+    rng = np.random.default_rng(seed)
+    n_pages = 1 + B * MP
+    kp = rng.normal(size=(n_pages, PS, G, D)).astype(np.float32)
+    vp = rng.normal(size=(n_pages, PS, G, D)).astype(np.float32)
+    perm = list(rng.permutation(np.arange(1, n_pages)))
+    tbl = np.full((B, MP), -1, np.int32)
+    owned = []
+    for i, ln in enumerate(LENS):
+        n = -(-(ln + s_win - 1) // PS)
+        tbl[i, :n] = perm[:n]
+        owned += perm[:n]
+        del perm[:n]
+    foreign = np.ones(n_pages, bool)
+    foreign[owned] = False
+    kp[foreign] = garbage
+    vp[foreign] = -garbage
+    q = rng.normal(size=(B, s_win, G, QH, D)).astype(np.float32)
+    return q, kp, vp, np.asarray(LENS, np.int32), tbl
