@@ -5,8 +5,8 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-Phases (each prints its own lines; any failure exits non-zero without the
-final result line):
+Phases (each prints its own lines and its seconds; any failure exits
+non-zero without the final result line):
 
  1. environment and kernel build: the card's name and power limit, torch
     and CUDA versions, the nvcc build of every kernel from ``csrc/``;
@@ -16,20 +16,32 @@ final result line):
     contiguous, S in {1, 3}, float32 (atol 1e-5: only the summation order
     differs) and bfloat16 (atol = rtol = 2e-2 in float32: about one bf16
     ulp of the output);
- 4. serving stablelm-1.6b at its published width with random weights
-    through ``ServingEngine.generate_batch`` over a paged KV pool, DOMINO
-    JSON grammar, 4 requests in 4 slots: (a) float32 through the kernels
-    against the same requests through the plain path (greedy ids and
-    statuses equal), (b) bfloat16 through the kernels (tokens/s, decode
-    ticks, launch counts);
- 5. each kernel's launches on the main path, its parity, and its time
+ 4. the Mamba1 selective scan and the Mamba2 SSD scan, kernel vs plain
+    version on the card in float32 (atol = rtol = 1e-4: the kernels walk
+    the recurrence step by step, the plain SSD scan is chunked, and the
+    sums over the state run in other orders), at the serving paths' decode
+    and prefill shapes, with nonzero h0, and two calls that carry the
+    state against one call over the whole sequence;
+ 5. serving, at its published width with random weights, through
+    ``ServingEngine.generate_batch`` with the DOMINO JSON grammar, 4
+    requests in 4 slots, 32 tokens each: stablelm-1.6b over a paged KV
+    pool, then falcon-mamba-7b (Mamba1) and zamba2-1.2b (Mamba2 with a
+    shared attention block) on dense rows of recurrent state.  For each:
+    (a) float32 through the kernels against the same requests through the
+    plain path (greedy ids and statuses equal), (b) bfloat16 through the
+    kernels (tokens/s, the tick's breakdown, launches a tick).  Every
+    kernel counter is set to 0 just before a run and read just after it;
+    a kernel of the model's path that did not launch, or launched another
+    number of times than its layers say, fails the phase;
+ 6. each kernel's launches on the serving paths, its parity, and its time
     beside its plain version, its bound and a library yardstick, on the
-    inputs the main path gave it.
+    inputs a serving path gave it.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import pathlib
@@ -40,16 +52,42 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
-ARCH = "stablelm-1.6b"
+MODELS = ("stablelm-1.6b", "falcon-mamba-7b", "zamba2-1.2b")
 N_REQUESTS = 4
 MAX_TOKENS = 32
 PAGE_SIZE = 64
+MAX_LEN = 1024
+SCAN_TOL = 1e-4
 PROMPTS = ["A person encoded as a JSON object: ", "Results: ", "Config: ",
            "Data record: "]
+# kernel name -> (package of its launch wrapper, the wrapper's name)
+KERNELS = {
+    "decode_attention": ("repro_torch.kernels.decode_attention",
+                         "decode_attention_cuda"),
+    "masked_argmax_packed": ("repro_torch.kernels.masked_sample",
+                             "masked_argmax_packed"),
+    "mamba_scan": ("repro_torch.kernels.mamba_scan", "mamba_scan_cuda"),
+    "ssd_scan": ("repro_torch.kernels.ssd_scan", "ssd_scan_cuda"),
+}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _wrappers():
+    import importlib
+    return {name: getattr(importlib.import_module(pkg + ".kernel"), fn)
+            for name, (pkg, fn) in KERNELS.items()}
+
+
+def reset_counts() -> None:
+    for w in _wrappers().values():
+        w.launches = 0
+
+
+def read_counts():
+    return {name: w.launches for name, w in _wrappers().items()}
 
 
 # -- timing ---------------------------------------------------------------------
@@ -100,7 +138,7 @@ def phase_env(torch):
     log(f"[build] kernels built from {build.CSRC.relative_to(ROOT)} in "
         f"{build.build_seconds if build.build_seconds is not None else time.perf_counter() - t0:.1f}s")
     for line in build.build_log.splitlines():
-        if "registers" in line or line.startswith("=="):
+        if "registers" in line or "spill" in line or line.startswith("=="):
             log(f"[build] {line.strip()}")
     return card
 
@@ -247,13 +285,17 @@ def phase_decode_attention(torch):
 
 def _sdpa_yardstick(torch, q, kp, vp, ln, tbl):
     """One fused library attention call over the same rows as the kernel,
-    pages gathered beforehand (the gather is not timed).  A yardstick
-    only: the port never calls it."""
+    pages gathered beforehand (the gather is not timed; ``tbl`` None reads
+    ``kp``/``vp`` as contiguous stripes).  A yardstick only: the port never
+    calls it."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention.ref import gather_pages
     bq, s_win, g, qh, d = q.shape
-    kd, vd = gather_pages(kp, tbl), gather_pages(vp, tbl)
+    if tbl is None:
+        kd, vd = kp, vp
+    else:
+        kd, vd = gather_pages(kp, tbl), gather_pages(vp, tbl)
     t = kd.shape[1]
     qs = q.permute(0, 2, 3, 1, 4).reshape(bq, g * qh, s_win, d)
     ks = kd.permute(0, 2, 1, 3).repeat_interleave(qh, dim=1)
@@ -267,11 +309,11 @@ def _sdpa_yardstick(torch, q, kp, vp, ln, tbl):
 
 def _attn_bound(q, kp, ln, tbl, dtype):
     b, s_win, g, qh, d = q.shape
-    cap = tbl.shape[1] * kp.shape[1]
+    cap = kp.shape[1] if tbl is None else tbl.shape[1] * kp.shape[1]
     keys = sum(max(0, min(int(x) + s_win - 1, cap)) for x in ln.tolist())
     esize = q.element_size()
     n_bytes = (keys * g * 2 * d * esize + 2 * q.numel() * esize
-               + ln.numel() * 4 + tbl.numel() * 4)
+               + ln.numel() * 4 + (0 if tbl is None else tbl.numel() * 4))
     n_ops = keys * g * qh * s_win * 4 * d
     return bound_ms(n_bytes, n_ops, dtype)
 
@@ -279,19 +321,142 @@ def _attn_bound(q, kp, ln, tbl, dtype):
 # -- phase 4 --------------------------------------------------------------------
 
 
-class Recorder:
-    """Keeps the inputs of the main path's kernel calls (for timing and
-    parity on exactly those inputs) while the call goes through the real
-    wrapper, which does its own launch counting."""
+def _mamba_bound(dt, n):
+    """Each operand read once, y and hT written once; 7 operations a
+    (row, step, channel, state): dt*A, exp, two products and a sum for
+    the update, a product and a sum for y."""
+    b, s, d = dt.shape
+    n_bytes = 4 * (3 * b * s * d + 2 * b * s * n + d * n + 2 * b * d * n)
+    return bound_ms(n_bytes, 7 * b * s * d * n, "float32")
 
-    def __init__(self, module, name):
-        self.module, self.name = module, name
+
+def _ssd_bound(x, n):
+    """Each operand read once, y and hT written once; 5 operations a
+    (row, step, head, dim, state): two products and a sum for the update,
+    a product and a sum for y."""
+    b, s, h, d = x.shape
+    n_bytes = 4 * (2 * b * s * h * d + 2 * b * s * n + 2 * b * s * h
+                   + 2 * b * h * d * n)
+    return bound_ms(n_bytes, 5 * b * s * h * d * n, "float32")
+
+
+def _scan_err(torch, got, want, what):
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    ok = all(torch.allclose(g, w, atol=SCAN_TOL, rtol=SCAN_TOL)
+             and torch.isfinite(g).all() for g, w in zip(got, want))
+    if not ok:
+        raise AssertionError(f"{what}: max abs err {err} beyond atol = rtol "
+                             f"= {SCAN_TOL}")
+    return err
+
+
+def _scan_inputs(torch, gen, shapes, scales):
+    """Normal draws on the card, scaled: a positive scale takes |N|, a
+    negative one -|N| (decays), None plain N(0, 1)."""
+    out = []
+    for shape, sc in zip(shapes, scales):
+        x = torch.randn(shape, generator=gen, device="cuda")
+        out.append(x if sc is None else x.abs() * sc)
+    return out
+
+
+def phase_scans(torch):
+    """Both scan kernels against their plain versions at the serving
+    paths' shapes; returns {kernel: {"long": (ms, plain ms, bound ms)}} at
+    the longest prompt shape."""
+    from repro_torch.kernels.mamba_scan.kernel import mamba_scan_cuda
+    from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    out = {}
+    # falcon-mamba-7b: d_inner 8192, N 16; decode B=4, prefill B=1
+    d, n = 8192, 16
+    for b, s in ((4, 1), (1, 1), (1, 37), (1, 128), (1, 300)):
+        dt, x, bm, cm, a, h0 = _scan_inputs(
+            torch, gen, [(b, s, d), (b, s, d), (b, s, n), (b, s, n), (d, n),
+                         (b, d, n)], [0.1, None, None, None, -1.0, None])
+        got = mamba_scan_cuda(dt, x, bm, cm, a, h0)
+        want = mamba_scan_ref(dt, x, bm, cm, a, h0)
+        torch.cuda.synchronize()
+        err = _scan_err(torch, got, want, f"mamba_scan B={b} S={s}")
+        cont = ""
+        if s > 1:
+            c = s // 2
+            y1, h1 = mamba_scan_cuda(*[t[:, :c].contiguous()
+                                       for t in (dt, x, bm, cm)], a, h0)
+            y2, h2 = mamba_scan_cuda(*[t[:, c:].contiguous()
+                                       for t in (dt, x, bm, cm)], a, h1)
+            torch.cuda.synchronize()
+            e2 = _scan_err(torch, (torch.cat([y1, y2], 1), h2), got,
+                           f"mamba_scan continuity B={b} S={s}")
+            cont = f", {c}+{s - c} steps carried vs one call err {e2:.2e}"
+        k_ms = time_ms(torch, lambda: mamba_scan_cuda(dt, x, bm, cm, a, h0))
+        p_ms = time_ms(torch, lambda: mamba_scan_ref(dt, x, bm, cm, a, h0),
+                       n=5 if s > 1 else 50)
+        bnd, by = _mamba_bound(dt, n)
+        log(f"[scan] mamba_scan B={b} S={s} d={d} N={n}, nonzero h0: err "
+            f"{err:.2e} (tol {SCAN_TOL}){cont}; kernel {k_ms:.4f} ms, plain "
+            f"{p_ms:.4f} ms, bound {bnd:.5f} ms by {by}")
+        out["mamba_scan"] = {"long": (k_ms, p_ms, bnd),
+                             "long_shape": f"B={b} S={s} d={d} N={n}"}
+    # zamba2-1.2b: 64 heads of 64, N 64; decode B=4, prefill B=1
+    h, hd, n = 64, 64, 64
+    for b, s in ((4, 1), (1, 37), (1, 128), (1, 300)):
+        x, bm, cm, ld, dt, h0 = _scan_inputs(
+            torch, gen, [(b, s, h, hd), (b, s, n), (b, s, n), (b, s, h),
+                         (b, s, h), (b, h, hd, n)],
+            [None, None, None, -0.3, 0.2, None])
+        chunk = min(128, s)
+        got = ssd_scan_cuda(x, bm, cm, ld, dt, h0)
+        want = ssd_scan_ref(x, bm, cm, ld, dt, h0, chunk=chunk)
+        torch.cuda.synchronize()
+        err = _scan_err(torch, got, want, f"ssd_scan B={b} S={s}")
+        cont = ""
+        if s > 1:
+            c = s // 2
+            y1, h1 = ssd_scan_cuda(*[t[:, :c].contiguous()
+                                     for t in (x, bm, cm, ld, dt)], h0)
+            y2, h2 = ssd_scan_cuda(*[t[:, c:].contiguous()
+                                     for t in (x, bm, cm, ld, dt)], h1)
+            torch.cuda.synchronize()
+            e2 = _scan_err(torch, (torch.cat([y1, y2], 1), h2), got,
+                           f"ssd_scan continuity B={b} S={s}")
+            cont = f", {c}+{s - c} steps carried vs one call err {e2:.2e}"
+        k_ms = time_ms(torch, lambda: ssd_scan_cuda(x, bm, cm, ld, dt, h0))
+        p_ms = time_ms(torch, lambda: ssd_scan_ref(x, bm, cm, ld, dt, h0,
+                                                   chunk=chunk), n=10)
+        bnd, by = _ssd_bound(x, n)
+        log(f"[scan] ssd_scan B={b} S={s} H={h} D={hd} N={n}, nonzero h0: "
+            f"err {err:.2e} (tol {SCAN_TOL}){cont}; kernel {k_ms:.4f} ms, "
+            f"plain {p_ms:.4f} ms (chunk {chunk}), bound {bnd:.5f} ms by "
+            f"{by}")
+        out["ssd_scan"] = {"long": (k_ms, p_ms, bnd),
+                           "long_shape": f"B={b} S={s} H={h} D={hd} N={n}"}
+    return out
+
+
+# -- phase 5 --------------------------------------------------------------------
+
+
+class Recorder:
+    """Keeps the inputs of the serving path's kernel calls (every
+    ``keep_every``-th call, for timing and parity on exactly those inputs)
+    while the call goes through the real wrapper, which does its own
+    launch counting."""
+
+    def __init__(self, module, name, keep_every=1):
+        self.module, self.name, self.every = module, name, keep_every
         self.fn = getattr(module, name)
         self.calls = []
+        self.n = 0
 
     def __enter__(self):
         def wrapped(*args, **kw):
-            self.calls.append((args, kw))
+            if self.n % self.every == 0:
+                self.calls.append((args, kw))
+            self.n += 1
             return self.fn(*args, **kw)
         setattr(self.module, self.name, wrapped)
         return self
@@ -328,44 +493,84 @@ class PhaseTimer:
             setattr(self.cls, name, fn)
 
 
-def phase_serve(torch):
+def path_kernels(cfg):
+    """The kernels a decode tick of ``cfg`` launches, each with its
+    launches per decode forward and per admission prefill."""
+    head, reps, group, tail = cfg.layer_program
+    blocks = list(head) + list(group) * reps + list(tail)
+    n_attn = sum(b in ("attn", "shared_attn") for b in blocks)
+    out = {"masked_argmax_packed": None}      # one a selection tick
+    if n_attn:
+        out["decode_attention"] = (n_attn, 0)  # prefill attends densely
+    if blocks.count("mamba1"):
+        out["mamba_scan"] = (blocks.count("mamba1"),) * 2
+    if blocks.count("mamba2") and cfg.ssm.n_groups == 1:
+        out["ssd_scan"] = (blocks.count("mamba2"),) * 2
+    return out
+
+
+def check_launches(cfg, counts, stats, what):
+    """Fail unless every kernel of the path launched, and the per-layer
+    kernels exactly once a layer of every forward."""
+    n_dec = stats["n_decode"]
+    n_pre = stats["n_fwd"] - n_dec
+    for name, per in path_kernels(cfg).items():
+        if counts[name] == 0:
+            raise AssertionError(f"{what}: {name} never launched")
+        if per is not None and counts[name] != per[0] * n_dec + per[1] * n_pre:
+            raise AssertionError(
+                f"{what}: {name} launched {counts[name]} times, expected "
+                f"{per[0]} a decode x {n_dec} + {per[1]} a prefill x {n_pre}")
+    off_path = [k for k, v in counts.items()
+                if v and k not in path_kernels(cfg)]
+    if off_path:
+        raise AssertionError(f"{what}: {off_path} launched off the path")
+
+
+def describe(cfg) -> str:
+    head, reps, group, tail = cfg.layer_program
+    prog = (f"{' '.join(head) + ' + ' if head else ''}{reps} x "
+            f"({' '.join(group)}){' + ' + ' '.join(tail) if tail else ''}")
+    s = (f"{cfg.arch_id}: {cfg.n_layers} layers [{prog}], d_model "
+         f"{cfg.d_model}, vocab {cfg.vocab_size}")
+    if cfg.ssm is not None:
+        sc = cfg.ssm
+        d_in = sc.expand * cfg.d_model
+        s += (f", d_inner {d_in}, d_state {sc.d_state}, d_conv {sc.d_conv}"
+              + (f", {d_in // sc.head_dim} SSM heads of {sc.head_dim}, "
+                 f"{sc.n_groups} group(s)" if sc.version == 2 else
+                 f", dt_rank {max(1, cfg.d_model // 16)}"))
+    if any(b in ("attn", "shared_attn") for b in group + head + tail):
+        s += (f", attention {cfg.n_heads} heads ({cfg.n_kv_heads} kv) of "
+              f"{cfg.d_head}, d_ff {cfg.d_ff}")
+    return s
+
+
+def phase_serve(torch, arch, shared):
     import dataclasses
 
     from repro_torch.configs import get_config
-    from repro_torch.core import grammars
     from repro_torch.core.domino import DominoDecoder
-    from repro_torch.core.sampling import GrammarSampler
-    from repro_torch.kernels.decode_attention import kernel as attn_kernel
     from repro_torch.kernels.decode_attention import ops as attn_ops
-    from repro_torch.kernels.masked_sample import kernel as mask_kernel
+    from repro_torch.kernels.mamba_scan import ops as mamba_ops
     from repro_torch.kernels.masked_sample import ops as mask_ops
-    from repro_torch.models import build_model
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models import build_model, kvcache
     from repro_torch.serving import (ConstraintSpec, DecodeParams, Request,
                                      ServingEngine)
     from repro_torch.serving.scheduler import ContinuousBatchingScheduler
-    from repro_torch.tokenizer import train_bpe
 
-    torch.backends.cuda.matmul.allow_tf32 = False   # full float32 products
-    torch.backends.cudnn.allow_tf32 = False
-    t0 = time.perf_counter()
-    json_g = grammars.load("json")
-    tok = train_bpe(GrammarSampler(json_g, seed=0).corpus(200),
-                    vocab_size=400)
-    log(f"[serve] tokenizer: {tok.vocab_size} tokens, trained in "
-        f"{time.perf_counter() - t0:.1f}s")
-    base = get_config(ARCH)
-    log(f"[serve] {ARCH}: {base.n_layers} layers, d_model {base.d_model}, "
-        f"{base.n_heads} heads ({base.n_kv_heads} kv), d_head "
-        f"{base.d_head}, d_ff {base.d_ff}, vocab {base.vocab_size} "
-        f"(logits sliced to the tokenizer's {tok.vocab_size})")
+    tok, json_g = shared["tok"], shared["grammar"]
+    base = get_config(arch)
+    paged = kvcache.pageable(base)
+    log(f"[serve] {describe(base)} (logits sliced to the tokenizer's "
+        f"{tok.vocab_size}); {'paged KV pool' if paged else 'dense rows'}")
     requests = [Request(PROMPTS[i % len(PROMPTS)],
                         ConstraintSpec(grammar="json", mode="domino"),
                         DecodeParams(max_tokens=MAX_TOKENS, seed=i))
                 for i in range(N_REQUESTS)]
-    tree_cache = None
 
     def engine_for(dtype, kernels, params=None):
-        nonlocal tree_cache
         cfg = dataclasses.replace(base, dtype=dtype,
                                   use_pallas_kernels=kernels)
         model = build_model(cfg)
@@ -373,18 +578,11 @@ def phase_serve(torch):
             gen = torch.Generator(device="cuda")
             gen.manual_seed(0)
             params = model.init(gen, device="cuda")
-        eng = ServingEngine(model, params, tok, max_len=1024, device="cuda")
-        tree_cache = eng.register_grammar("json", json_g,
-                                          tree_cache=tree_cache)
+        eng = ServingEngine(model, params, tok, max_len=MAX_LEN,
+                            device="cuda")
+        shared["trees"] = eng.register_grammar("json", json_g,
+                                               tree_cache=shared["trees"])
         return eng
-
-    def reset():
-        attn_kernel.decode_attention_cuda.launches = 0
-        mask_kernel.masked_argmax_packed.launches = 0
-
-    def counts():
-        return (attn_kernel.decode_attention_cuda.launches,
-                mask_kernel.masked_argmax_packed.launches)
 
     def serve(eng):
         return eng.generate_batch(requests, max_batch=N_REQUESTS,
@@ -401,80 +599,119 @@ def phase_serve(torch):
                                      "the JSON grammar")
 
     # (a) float32: kernel path vs plain path, same weights and requests
-    eng_k = engine_for("float32", True)
     t0 = time.perf_counter()
-    eng_k.precompute()
-    log(f"[serve] grammar trees precomputed in "
+    eng_k = engine_for("float32", True)
+    torch.cuda.synchronize()
+    log(f"[serve] {arch} f32 weights drawn on the card in "
         f"{time.perf_counter() - t0:.1f}s")
+    if not shared.get("precomputed"):
+        t0 = time.perf_counter()
+        eng_k.precompute()
+        shared["precomputed"] = True
+        log(f"[serve] grammar trees precomputed in "
+            f"{time.perf_counter() - t0:.1f}s")
     eng_p = engine_for("float32", False, params=eng_k.params)
-    reset()
+    reset_counts()
     res_k = serve(eng_k)
     torch.cuda.synchronize()
-    n_attn, n_mask = counts()
-    ticks = eng_k.last_batch_stats["n_decode"]
+    counts = read_counts()
+    stats = dict(eng_k.last_batch_stats)
     res_p = serve(eng_p)
-    check_valid(res_k, "f32 kernel run")
-    check_valid(res_p, "f32 plain run")
-    log(f"[serve] f32 kernel run: launches decode_attention {n_attn}, "
-        f"masked_argmax {n_mask}; {ticks} decode ticks")
-    if n_attn == 0 or n_mask == 0 or n_attn != base.n_layers * ticks:
-        raise AssertionError("f32 kernel run: launch counts off")
+    check_valid(res_k, f"{arch} f32 kernel run")
+    check_valid(res_p, f"{arch} f32 plain run")
+    log(f"[serve] {arch} f32 kernel run: launches "
+        + ", ".join(f"{k} {counts[k]}" for k in path_kernels(base))
+        + f"; {stats['n_decode']} decode ticks, "
+        f"{stats['n_fwd'] - stats['n_decode']} admissions, layout "
+        f"{'paged' if stats['paged'] else 'dense'}")
+    if stats["paged"] != paged:
+        raise AssertionError(f"{arch}: the scheduler chose the wrong layout")
+    check_launches(base, counts, stats, f"{arch} f32 kernel run")
     for i, (a, b) in enumerate(zip(res_k, res_p)):
-        log(f"[serve] f32 request {i}: status {a.status}, {a.n_tokens} "
-            f"tokens, {a.n_interventions} interventions: {a.text[:60]!r}")
+        log(f"[serve] {arch} f32 request {i}: status {a.status}, "
+            f"{a.n_tokens} tokens, {a.n_interventions} interventions: "
+            f"{a.text[:60]!r}")
         if a.token_ids != b.token_ids or a.status != b.status:
             k = next((j for j, (x, y) in enumerate(zip(a.token_ids,
                                                        b.token_ids))
                       if x != y), min(len(a.token_ids), len(b.token_ids)))
             ids = eng_p.tok.encode(requests[i].prompt) + b.token_ids[:k]
-            cache = eng_p.model.init_cache(1, 1024, device="cuda")
+            cache = eng_p.model.init_cache(1, MAX_LEN, device="cuda")
             lg, _ = eng_p.model.prefill(
                 eng_p.params, {"tokens": torch.tensor([ids], device="cuda")},
                 cache)
             top = torch.topk(lg[0, -1, :tok.vocab_size].float(), 2).values
             raise AssertionError(
-                f"f32 request {i}: kernel and plain paths diverge at step "
-                f"{k} (top-2 logit margin there "
+                f"{arch} f32 request {i}: kernel and plain paths diverge at "
+                f"step {k} (top-2 logit margin there "
                 f"{(top[0] - top[1]).item():.3e})")
-    log("[serve] f32: kernel path == plain path for every request")
-    # the single-request path takes the kernel's contiguous mode; its
-    # prefill and batch shapes differ from the scheduler's, so equal ids
-    # are expected but not required bit for bit
+    log(f"[serve] {arch} f32: kernel path == plain path for every request")
+    # the single-request path (dense B=1 cache, the attention kernel's
+    # contiguous mode); its prefill and batch shapes differ from the
+    # scheduler's, so equal ids are expected but not required bit for bit
     single = eng_k.generate(requests[0])
-    log(f"[serve] f32 generate (contiguous kernel mode), request 0: "
-        f"{single.status}, ids "
+    log(f"[serve] {arch} f32 generate, request 0: {single.status}, ids "
         f"{'equal to' if single.token_ids == res_k[0].token_ids else 'DIFFERENT from'}"
         f" generate_batch")
-    del eng_k, eng_p, res_p
+    del eng_k, eng_p, res_p, single
     torch.cuda.empty_cache()
 
     # (b) bfloat16, the published dtype, through the kernels
     eng = engine_for("bfloat16", True)
     serve(eng)                                    # warm-up
     torch.cuda.synchronize()
-    rec_attn = Recorder(attn_ops, "decode_attention_cuda")
-    rec_mask = Recorder(mask_ops, "masked_argmax_packed")
+    head, reps, group, tail = base.layer_program
+    blocks = list(head) + list(group) * reps + list(tail)
+    recs = {
+        "decode_attention": Recorder(attn_ops, "decode_attention_cuda"),
+        "masked_argmax_packed": Recorder(mask_ops, "masked_argmax_packed"),
+        "mamba_scan": Recorder(mamba_ops, "mamba_scan_cuda",
+                               max(1, blocks.count("mamba1"))),
+        "ssd_scan": Recorder(ssd_ops, "ssd_scan_cuda",
+                             max(1, blocks.count("mamba2"))),
+    }
     phases = PhaseTimer(ContinuousBatchingScheduler)
-    reset()
-    with rec_attn, rec_mask, phases:
+    with contextlib.ExitStack() as hooks:
+        for r in (*recs.values(), phases):
+            hooks.enter_context(r)
+        reset_counts()
         t0 = time.perf_counter()
         res = serve(eng)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    n_attn, n_mask = counts()
-    ticks = eng.last_batch_stats["n_decode"]
-    check_valid(res, "bf16 run")
+        counts = read_counts()
+    stats = dict(eng.last_batch_stats)
+    ticks = stats["n_decode"]
+    check_valid(res, f"{arch} bf16 run")
+    check_launches(base, counts, stats, f"{arch} bf16 run")
     n_tok = sum(r.n_tokens for r in res)
-    log(f"[serve] bf16: {n_tok} tokens in {wall:.3f}s = "
-        f"{n_tok / wall:.1f} tok/s; {ticks} decode ticks; launches "
-        f"decode_attention {n_attn}, masked_argmax {n_mask}; statuses "
+    log(f"[serve] {arch} bf16: {n_tok} tokens in {wall:.3f}s = "
+        f"{n_tok / wall:.1f} tok/s; {ticks} decode ticks, "
+        f"{stats['n_fwd'] - ticks} admissions; statuses "
         f"{[r.status for r in res]}")
-    if n_attn == 0 or n_mask == 0 or n_attn != base.n_layers * ticks:
-        raise AssertionError("bf16 run: launch counts off")
-    _tick_breakdown(torch, eng, rec_attn.calls, res, wall, ticks,
-                    phases.seconds)
-    return {"decode_attention": (n_attn, rec_attn.calls),
-            "masked_argmax_packed": (n_mask, rec_mask.calls)}
+    n_pre = stats["n_fwd"] - ticks
+    log(f"[serve] {arch} bf16 launches: "
+        + "; ".join(f"{k} {counts[k]}" + (
+            f" = {per[0]} a decode forward x {ticks} + {per[1]} an "
+            f"admission x {n_pre}" if per else f" ({counts[k] / ticks:.2f} "
+            "a tick)") for k, per in path_kernels(base).items()))
+    if paged or "decode_attention" in path_kernels(base):
+        (q, _, _, ln), kw = recs["decode_attention"].calls[
+            len(recs["decode_attention"].calls) // 2]
+        lengths, table = (ln - 1).clone(), kw.get("block_tables")
+    else:
+        # lengths do not change the work of an attention-free forward
+        lengths = torch.tensor(
+            [len(tok.encode(PROMPTS[i % len(PROMPTS)])) + MAX_TOKENS // 2
+             for i in range(N_REQUESTS)], dtype=torch.int32, device="cuda")
+        table = None
+    _tick_breakdown(torch, eng, arch, res, wall, ticks, phases.seconds,
+                    lengths, table)
+    out = {"counts": counts,
+           "calls": {k: r.calls for k, r in recs.items() if r.calls}}
+    del eng, res
+    torch.cuda.empty_cache()
+    return out
 
 
 def _device_ms(torch, fn, n=5):
@@ -513,34 +750,38 @@ def _forward_ms(torch, model, params, cache, feed, n=10):
     return ((time.perf_counter() - t0) / n * 1e3,) + _device_ms(torch, fwd)
 
 
-def _tick_breakdown(torch, eng, attn_calls, results, wall, ticks, phases):
+def _tick_breakdown(torch, eng, arch, results, wall, ticks, phases, lengths,
+                    table):
     """Where a bf16 decode tick's time goes: the scheduler's phases on the
     host clock, and the decode forward alone at the main path's mid-run
-    state (its block table and lengths), through the kernels and through
+    lengths (and block table, when paged), through the kernels and through
     the plain path, on the host clock and on the card."""
     import dataclasses
 
     from repro_torch.models import build_model
     per_tick = {k.strip("_"): v / ticks * 1e3 for k, v in phases.items()}
     tick_ms = wall / ticks * 1e3
-    log(f"[serve] bf16 tick, host ms per decode tick: wall {tick_ms:.2f} = "
+    log(f"[serve] {arch} bf16 tick, host ms per decode tick: wall "
+        f"{tick_ms:.2f} = "
         + " + ".join(f"{k} {v:.2f}" for k, v in per_tick.items())
         + f" + other {tick_ms - sum(per_tick.values()):.2f}")
     mask_crit = sum(r.mask_time_s - r.mask_overlap_s for r in results)
     mask_hid = sum(r.mask_overlap_s for r in results)
     st = eng.last_batch_stats
-    log(f"[serve] bf16 host mask builds per tick: "
+    log(f"[serve] {arch} bf16 host mask builds per tick: "
         f"{mask_crit / ticks * 1e3:.3f} ms on the critical path, "
         f"{mask_hid / ticks * 1e3:.3f} ms hidden under the forward; "
         f"mask_cache_hits {st['mask_cache_hits']}, premask_hits "
         f"{st['premask_hits']}")
 
-    (q, _, _, ln), kw = attn_calls[len(attn_calls) // 2]
-    b = q.shape[0]
-    cache = eng.model.init_cache(b, eng.max_len, page_size=PAGE_SIZE,
-                                 device="cuda")
-    cache["len"] = (ln - 1).clone()        # the wrapper got cache_len + 1
-    cache["pages"] = kw["block_tables"].clone()
+    b = lengths.shape[0]
+    if table is None:
+        cache = eng.model.init_cache(b, eng.max_len, device="cuda")
+    else:
+        cache = eng.model.init_cache(b, eng.max_len, page_size=PAGE_SIZE,
+                                     device="cuda")
+        cache["pages"] = table.clone()
+    cache["len"] = lengths.to(torch.int32).clone()
     feed = torch.zeros((b, 1), dtype=torch.int64, device="cuda")
     plain = build_model(dataclasses.replace(eng.model.cfg,
                                             use_pallas_kernels=False))
@@ -560,30 +801,49 @@ def _tick_breakdown(torch, eng, attn_calls, results, wall, ticks, phases):
         f_wall, f_dev, top = _forward_ms(torch, model, eng.params, cache,
                                          feed)
         dev = "not measured" if f_dev is None else f"{f_dev:.3f} ms"
-        log(f"[serve] bf16 decode forward ({name}) at B={b} lengths "
-            f"{ln.tolist()}: host wall {f_wall:.2f} ms, device {dev} "
-            f"(profiler), weight-read bound {bnd:.3f} ms")
+        log(f"[serve] {arch} bf16 decode forward ({name}) at B={b} lengths "
+            f"{lengths.tolist()}: host wall {f_wall:.2f} ms, device {dev} "
+            f"(profiler), weight-read bound {bnd:.3f} ms "
+            f"({w_bytes / 1e9:.2f} GB)")
         if top:
             log(f"[serve]   top kernels ({name}), ms per forward: "
                 + "; ".join(f"{k[:60]} {t:.3f}" for k, t in top))
 
 
-# -- phase 5 --------------------------------------------------------------------
+# -- phase 6 --------------------------------------------------------------------
 
 
-def phase_kernels(torch, main_path):
-    """Each kernel on the inputs of a mid-run call of the main path."""
+def _mid_decode_call(calls, seq_axis):
+    """A mid-run decode call (S=1 on ``seq_axis`` of the first operand)
+    of a recorded list, else the middle call."""
+    dec = [c for c in calls if c[0][0].shape[seq_axis] == 1]
+    pick = dec or calls
+    return pick[len(pick) // 2]
+
+
+def phase_kernels(torch, paths, scans):
+    """Each kernel on the inputs of a mid-run call of a serving path."""
     from repro_torch.kernels.decode_attention.kernel import \
         decode_attention_cuda
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.mamba_scan.kernel import mamba_scan_cuda
+    from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
     from repro_torch.kernels.masked_sample.kernel import masked_argmax_packed
     from repro_torch.kernels.masked_sample.ref import masked_argmax_ref
-    out = []
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
-    n, calls = main_path["masked_argmax_packed"]
+    def launches(name):
+        by = {arch: p["counts"][name] for arch, p in paths.items()
+              if p["counts"][name]}
+        return sum(by.values()), by
+
+    out = []
+    n, by = launches("masked_argmax_packed")
     # a mid-run tick's logits view (row stride = padded vocab) and words;
     # the scheduler replaces both tensors every tick, so they still hold
     # that tick's values
+    calls = paths["stablelm-1.6b"]["calls"]["masked_argmax_packed"]
     (logits, bits), _ = calls[len(calls) // 2]
     i1, v1 = masked_argmax_packed(logits, bits)
     i2, v2 = masked_argmax_ref(logits, bits)
@@ -591,46 +851,103 @@ def phase_kernels(torch, main_path):
     if not (torch.equal(i1, i2) and torch.equal(v1, v2)):
         raise AssertionError("masked argmax differs on main-path inputs")
     b, v = logits.shape
-    bnd, by = bound_ms(b * v * 4 + bits.numel() * 4 + b * 8, b * v,
-                       "float32")
+    bnd, bnd_by = bound_ms(b * v * 4 + bits.numel() * 4 + b * 8, b * v,
+                           "float32")
     out.append({
         "name": "masked_argmax_packed", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/masked_argmax.cu",
         "replaces": "src/repro/kernels/masked_sample/kernel.py:156",
-        "launches": n, "parity": "bitwise",
+        "launches": n, "launches_by_path": by, "parity": "bitwise",
         "max_abs_err": (v1 - v2).abs().max().item(),
-        "shape": f"B={b} V={v} row stride {logits.stride(0)}",
+        "shape": f"B={b} V={v} row stride {logits.stride(0)} (stablelm-1.6b)",
         "ms": time_ms(torch, lambda: masked_argmax_packed(logits, bits)),
         "plain_ms": time_ms(torch, lambda: masked_argmax_ref(logits, bits)),
-        "bound_ms": bnd, "bound_by": by, "library_ms": None})
+        "bound_ms": bnd, "bound_by": bnd_by, "library_ms": None})
 
-    n, calls = main_path["decode_attention"]
-    (q, kp, vp, ln), kw = calls[len(calls) // 2]
-    tbl = kw.get("block_tables")
-    got = decode_attention_cuda(q, kp, vp, ln, block_tables=tbl)
-    want = decode_attention_ref(q, kp, vp, ln, block_tables=tbl)
-    torch.cuda.synchronize()
-    err = _check_attn(torch, got, want, q.dtype, "main-path inputs")
-    bnd, by = _attn_bound(q, kp, ln, tbl, "bfloat16")
-    lib_ms = time_ms(torch, _sdpa_yardstick(torch, q, kp, vp, ln, tbl))
-    out.append({
-        "name": "decode_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
-        "replaces": "src/repro/kernels/decode_attention/kernel.py:121",
-        "launches": n, "parity": "atol/rtol 2e-2 (bf16)",
-        "max_abs_err": err,
-        "shape": (f"q {tuple(q.shape)} pool {tuple(kp.shape)} lengths "
-                  f"{ln.tolist()}"),
-        "ms": time_ms(torch, lambda: decode_attention_cuda(
-            q, kp, vp, ln, block_tables=tbl)),
-        "plain_ms": time_ms(torch, lambda: decode_attention_ref(
-            q, kp, vp, ln, block_tables=tbl)),
-        "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms})
+    def attn_entry(arch):
+        calls = paths[arch]["calls"]["decode_attention"]
+        (q, kp, vp, ln), kw = calls[len(calls) // 2]
+        tbl = kw.get("block_tables")
+        got = decode_attention_cuda(q, kp, vp, ln, block_tables=tbl)
+        want = decode_attention_ref(q, kp, vp, ln, block_tables=tbl)
+        torch.cuda.synchronize()
+        err = _check_attn(torch, got, want, q.dtype, f"{arch} inputs")
+        bnd, bnd_by = _attn_bound(q, kp, ln, tbl, "bfloat16")
+        return {
+            "max_abs_err": err,
+            "shape": (f"q {tuple(q.shape)} {'pool' if tbl is not None else 'stripes'} "
+                      f"{tuple(kp.shape)} lengths {ln.tolist()} ({arch}, "
+                      f"{'paged' if tbl is not None else 'contiguous'})"),
+            "ms": time_ms(torch, lambda: decode_attention_cuda(
+                q, kp, vp, ln, block_tables=tbl)),
+            "plain_ms": time_ms(torch, lambda: decode_attention_ref(
+                q, kp, vp, ln, block_tables=tbl)),
+            "bound_ms": bnd, "bound_by": bnd_by,
+            "library_ms": time_ms(torch, _sdpa_yardstick(torch, q, kp, vp,
+                                                         ln, tbl))}
+
+    n, by = launches("decode_attention")
+    entry = {"name": "decode_attention", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+             "replaces": "src/repro/kernels/decode_attention/kernel.py:121",
+             "launches": n, "launches_by_path": by,
+             "parity": "atol/rtol 2e-2 (bf16)"}
+    entry.update(attn_entry("stablelm-1.6b"))
+    entry["contiguous"] = attn_entry("zamba2-1.2b")
+    out.append(entry)
+
+    for name, arch, fn, ref, bound, shape_of in (
+            ("mamba_scan", "falcon-mamba-7b", mamba_scan_cuda,
+             mamba_scan_ref, lambda a: _mamba_bound(a[0], a[2].shape[-1]),
+             lambda a: "B={} S={} d={} N={}".format(*a[0].shape,
+                                                     a[2].shape[-1])),
+            ("ssd_scan", "zamba2-1.2b", ssd_scan_cuda, ssd_scan_ref,
+             lambda a: _ssd_bound(a[0], a[1].shape[-1]),
+             lambda a: "B={} S={} H={} D={} N={}".format(*a[0].shape,
+                                                         a[1].shape[-1]))):
+        n, by = launches(name)
+        args, _ = _mid_decode_call(paths[arch]["calls"][name], 1)
+        got = fn(*args)
+        want = ref(*args)
+        torch.cuda.synchronize()
+        err = _scan_err(torch, got, want, f"{name} on {arch} inputs")
+        bnd, bnd_by = bound(args)
+        long_ms, long_plain, long_bound = scans[name]["long"]
+        out.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": ("src/repro/kernels/mamba_scan/kernel.py:62"
+                         if name == "mamba_scan" else
+                         "src/repro/kernels/ssd_scan/kernel.py:63"),
+            "launches": n, "launches_by_path": by,
+            "parity": f"atol/rtol {SCAN_TOL} (f32)", "max_abs_err": err,
+            "shape": f"{shape_of(args)} ({arch} decode)",
+            "ms": time_ms(torch, lambda: fn(*args)),
+            "plain_ms": time_ms(torch, lambda: ref(*args)),
+            "bound_ms": bnd, "bound_by": bnd_by, "library_ms": None,
+            "long": {"shape": scans[name]["long_shape"], "ms": long_ms,
+                     "plain_ms": long_plain, "bound_ms": long_bound}})
     for k in out:
-        log(f"[kernel] {k['name']}: {k['launches']} launches, "
-            f"{k['ms']:.4f} ms (plain {k['plain_ms']:.4f} ms, bound "
-            f"{k['bound_ms']:.6f} ms by {k['bound_by']}) at {k['shape']}")
+        log(f"[kernel] {k['name']}: {k['launches']} launches "
+            f"{k['launches_by_path']}, {k['ms']:.4f} ms (plain "
+            f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.6f} ms by "
+            f"{k['bound_by']}) at {k['shape']}")
+        if "contiguous" in k:
+            c = k["contiguous"]
+            log(f"[kernel] {k['name']} contiguous: {c['ms']:.4f} ms (plain "
+                f"{c['plain_ms']:.4f} ms, library {c['library_ms']:.4f} ms, "
+                f"bound {c['bound_ms']:.6f} ms by {c['bound_by']}) at "
+                f"{c['shape']}")
     return out
+
+
+def _finite(k) -> bool:
+    nums = [k[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms",
+                               "max_abs_err")]
+    if "contiguous" in k:
+        nums += [k["contiguous"][key] for key in ("ms", "plain_ms",
+                                                   "bound_ms", "library_ms")]
+    return all(x is None or math.isfinite(x) for x in nums)
 
 
 def main() -> int:
@@ -648,13 +965,35 @@ def main() -> int:
               "; run it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False   # full float32 products
+    torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"[phase] {name}: {time.perf_counter() - t0:.1f}s")
+        return out
+
     try:
-        card = phase_env(torch)
-        phase_masked_argmax(torch)
-        phase_decode_attention(torch)
-        main_path = phase_serve(torch)
-        kernels = phase_kernels(torch, main_path)
+        card = timed("env and build", phase_env, torch)
+        timed("masked argmax", phase_masked_argmax, torch)
+        timed("decode attention", phase_decode_attention, torch)
+        scans = timed("scans", phase_scans, torch)
+        from repro_torch.core import grammars
+        from repro_torch.core.sampling import GrammarSampler
+        from repro_torch.tokenizer import train_bpe
+        t0 = time.perf_counter()
+        json_g = grammars.load("json")
+        tok = train_bpe(GrammarSampler(json_g, seed=0).corpus(200),
+                        vocab_size=400)
+        log(f"[serve] tokenizer: {tok.vocab_size} tokens, trained in "
+            f"{time.perf_counter() - t0:.1f}s")
+        shared = {"tok": tok, "grammar": json_g, "trees": None}
+        paths = {arch: timed(f"serve {arch}", phase_serve, torch, arch,
+                             shared)
+                 for arch in MODELS}
+        kernels = timed("kernels", phase_kernels, torch, paths, scans)
     except Exception as e:  # every phase's failure fails the run
         import traceback
         traceback.print_exc()
@@ -662,12 +1001,10 @@ def main() -> int:
         return 1
     log(f"[done] {time.perf_counter() - t_start:.1f}s on {card}")
     for k in kernels:
-        for key in ("ms", "plain_ms", "bound_ms", "library_ms",
-                    "max_abs_err"):
-            if k[key] is not None and not math.isfinite(k[key]):
-                print(f"chip_smoke: {k['name']} {key} is not finite",
-                      file=sys.stderr)
-                return 1
+        if not _finite(k):
+            print(f"chip_smoke: {k['name']} has a number that is not finite",
+                  file=sys.stderr)
+            return 1
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,7 +20,8 @@ import time
 from typing import Optional
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = ("decode_attention.cu", "masked_argmax.cu")
+SOURCES = ("decode_attention.cu", "masked_argmax.cu", "mamba_scan.cu",
+           "ssd_scan.cu")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -101,6 +102,10 @@ def library() -> ctypes.CDLL:
             _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
             ctypes.c_float, _P]
         lib.repro_decode_attention.restype = _I
+        lib.repro_mamba_scan.argtypes = [_P] * 8 + [_I] * 4 + [_P]
+        lib.repro_mamba_scan.restype = _I
+        lib.repro_ssd_scan.argtypes = [_P] * 8 + [_I] * 5 + [_P]
+        lib.repro_ssd_scan.restype = _I
         lib.repro_cuda_error_string.argtypes = [_I]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

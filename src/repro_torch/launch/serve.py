@@ -8,6 +8,12 @@ config of ``--arch``; ``--no-smoke`` serves its published width:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
       --no-smoke --grammar json --mode domino --prompts 4 --kernels
+
+``--arch falcon-mamba-7b`` (Mamba1) and ``--arch zamba2-1.2b`` (Mamba2 with
+a shared attention block) serve their recurrent state on the dense layout;
+``--kernels`` then also routes their scans through the hand-written
+kernels.  The scheduler pages the KV cache only where every block is full
+attention, and the header line says which layout it chose.
 """
 import argparse
 
@@ -33,8 +39,8 @@ def parse_args(argv=None):
     ap.add_argument("--slots", type=int, default=4,
                     help="continuous-batching decode slots")
     ap.add_argument("--kernels", action="store_true",
-                    help="route decode attention through the hand-written "
-                         "CUDA kernel")
+                    help="route decode attention and the SSM scans "
+                         "through the hand-written CUDA kernels")
     ap.add_argument("--page-size", type=int, default=64,
                     help="paged-KV pool page length in tokens")
     ap.add_argument("--pool-pages", type=int, default=None,
@@ -107,13 +113,14 @@ def main(argv=None) -> None:
     args = parse_args(argv)
     engine, requests, labels = build_engine(args)
     if len(requests) > 1:
-        print(f"[continuous batching: {len(requests)} requests, "
-              f"{min(len(requests), args.slots)} slots, "
-              f"{'contiguous KV' if args.no_paged else 'paged KV'}]")
         results = engine.generate_batch(
             requests, max_batch=args.slots,
             paged=False if args.no_paged else None,
             page_size=args.page_size, n_pages=args.pool_pages)
+        layout = ("paged KV" if engine.last_batch_stats["paged"]
+                  else "contiguous KV")
+        print(f"[continuous batching: {len(requests)} requests, "
+              f"{min(len(requests), args.slots)} slots, {layout}]")
     else:
         results = [engine.generate(r) for r in requests]
     for lbl, req, r in zip(labels, requests, results):

@@ -1,10 +1,13 @@
 """Bridge from ``repro``'s parameter pytree to the port's parameters.
 
 The JAX package stacks a repeated group's layer params on a leading
-``reps`` axis; the port keeps one dict per layer.  Leaves arrive as numpy
-arrays (a caller converts them with ``np.asarray``; bf16 leaves cross as
-float32, which holds every bf16 value exactly) and are cast to the
-config's dtype on ``device``.  This module imports no JAX.
+``reps`` axis; the port keeps one dict per layer.  A ``shared_attn``
+block's weights live once at ``stack["shared_attn"]`` (its group slot is
+empty).  Leaves arrive as numpy arrays (a caller converts them with
+``np.asarray``; bf16 leaves cross as float32, which holds every bf16 value
+exactly) and are cast to the config's dtype on ``device``, except the
+SSM leaves the JAX package keeps in float32 whatever the config's dtype
+(``F32_LEAVES``), which stay float32.  This module imports no JAX.
 """
 from __future__ import annotations
 
@@ -16,13 +19,18 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import torch_dtype
 
+# SSM parameters kept in float32 in every config (``repro.models.ssm``)
+F32_LEAVES = ("A_log", "D", "dt_bias")
 
-def _leaves(tree, fn):
+
+def _leaves(tree, fn, name=""):
+    """Map ``fn(leaf, key)`` over a nested dict/list tree; ``key`` is the
+    innermost dict key above the leaf."""
     if isinstance(tree, dict):
-        return {k: _leaves(v, fn) for k, v in tree.items()}
+        return {k: _leaves(v, fn, k) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_leaves(v, fn) for v in tree]
-    return fn(tree)
+        return [_leaves(v, fn, name) for v in tree]
+    return fn(tree, name)
 
 
 def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
@@ -31,9 +39,9 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
     dt = torch_dtype(cfg)
     dev = torch.device(device)
 
-    def to_t(a):
+    def to_t(a, name):
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(
-            device=dev, dtype=dt)
+            device=dev, dtype=torch.float32 if name in F32_LEAVES else dt)
 
     out = {k: _leaves(v, to_t) for k, v in tree.items() if k != "stack"}
     stack = tree["stack"]
@@ -41,8 +49,12 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
     out["stack"] = {
         "head": _leaves(list(stack["head"]), to_t),
         "tail": _leaves(list(stack["tail"]), to_t),
-        "group": {name: [_leaves(g, lambda a, r=r: to_t(np.asarray(a)[r]))
-                         for r in range(reps)]
+        # an empty slot (a shared block's) stays an empty list
+        "group": {name: ([_leaves(g, lambda a, k, r=r: to_t(
+                              np.asarray(a)[r], k)) for r in range(reps)]
+                         if g else [])
                   for name, g in stack["group"].items()},
     }
+    if "shared_attn" in stack:
+        out["stack"]["shared_attn"] = _leaves(stack["shared_attn"], to_t)
     return out

@@ -1,7 +1,11 @@
-"""Decode caches of the port, ``attn`` kind: dense per-row stripes or a
-paged pool with per-slot block tables (``repro.models.kvcache``'s layout).
+"""Decode caches of the port: dense per-row stripes or a paged pool with
+per-slot block tables (``repro.models.kvcache``'s layout).
 
-Dense: k/v (B, T_max, n_kv, d_head); validity = pos < len.
+Dense: ``attn``/``shared_attn`` k/v (B, T_max, n_kv, d_head); validity =
+pos < len.  SSM blocks (``mamba1``/``mamba2``) keep O(1) state a row and
+stay dense: ``conv`` (B, d_conv-1, C) in the config's dtype (the last
+inputs of the causal conv) and ``ssm`` in float32, (B, d_inner, N) for
+Mamba1 and (B, n_heads, head_dim, N) for Mamba2.
 Paged (``init_cache(..., page_size=ps)``): k/v are a POOL
 (n_pages, ps, n_kv, d_head) shared by all slots plus ``cache["pages"]``, a
 (B, max_pages) int32 block table (max_pages = T_max / ps): logical position
@@ -28,7 +32,7 @@ from repro_torch.models.layers import torch_dtype
 # block kinds whose cache can take the paged pool layout
 PAGEABLE_KINDS = ("attn", "shared_attn", "mla", "moe")
 # block kinds this port runs so far
-PORTED_KINDS = ("attn",)
+PORTED_KINDS = ("attn", "shared_attn", "mamba1", "mamba2")
 
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -57,7 +61,22 @@ def default_n_pages(batch: int, max_len: int, page_size: int) -> int:
     return batch * (max_len // page_size) + 1
 
 
-def _block_cache(cfg: ModelConfig, lead, t: int, dtype, device) -> dict:
+def _block_cache(cfg: ModelConfig, kind: str, lead, t: int, dtype,
+                 device) -> dict:
+    """Zero cache of one block: ``lead`` is (B,) or (n_pages,) -- with the
+    group's (reps,) in front -- and ``t`` the stripe or page length."""
+    if kind in ("mamba1", "mamba2"):
+        s = cfg.ssm
+        d_in = s.expand * cfg.d_model
+        if kind == "mamba1":
+            conv_c, state = d_in, (d_in, s.d_state)
+        else:
+            conv_c = d_in + 2 * s.n_groups * s.d_state
+            state = (d_in // s.head_dim, s.head_dim, s.d_state)
+        return {"conv": torch.zeros(tuple(lead) + (s.d_conv - 1, conv_c),
+                                    dtype=dtype, device=device),
+                "ssm": torch.zeros(tuple(lead) + state, dtype=torch.float32,
+                                   device=device)}
     shape = tuple(lead) + (t, cfg.n_kv_heads, cfg.d_head)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -66,7 +85,7 @@ def _block_cache(cfg: ModelConfig, lead, t: int, dtype, device) -> dict:
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                page_size: Optional[int] = None,
                n_pages: Optional[int] = None, device="cpu") -> dict:
-    """Zero cache of ``cfg``'s ``attn`` stack on ``device``."""
+    """Zero cache of ``cfg``'s stack on ``device``."""
     check_ported(cfg)
     dtype = torch_dtype(cfg)
     head, reps, group, tail = cfg.layer_program
@@ -83,11 +102,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         lead, t = (batch,), max_len
     cache = {
         "len": torch.zeros((), dtype=torch.int32, device=device),
-        "head": [_block_cache(cfg, lead, t, dtype, device) for _ in head],
-        "group": {f"b{i}": _block_cache(cfg, (reps,) + lead, t, dtype,
+        "head": [_block_cache(cfg, k, lead, t, dtype, device) for k in head],
+        "group": {f"b{i}": _block_cache(cfg, k, (reps,) + lead, t, dtype,
                                         device)
-                  for i, _ in enumerate(group)},
-        "tail": [_block_cache(cfg, lead, t, dtype, device) for _ in tail],
+                  for i, k in enumerate(group)},
+        "tail": [_block_cache(cfg, k, lead, t, dtype, device) for k in tail],
     }
     if page_size is not None:
         cache["pages"] = torch.zeros((batch, max_len // page_size),

@@ -6,8 +6,10 @@
   decode_step(params, cache, tokens) -> (logits (B,S_new,V), cache)
   rollback(cache, n_tokens)          -> cache
 
-mirroring ``repro.models.model`` for the dense ``attn`` family.  Params are
-nested dicts of tensors; caches are updated in place and returned.
+mirroring ``repro.models.model`` for the block kinds ported so far
+(``kvcache.PORTED_KINDS``: dense attention, zamba2's shared attention and
+the Mamba1/Mamba2 SSM blocks).  Params are nested dicts of tensors; caches
+are updated in place and returned.
 ``tokens`` in decode_step may carry S_new > 1 (one forward scores a
 speculative chain).  Training (``loss``/``train_logits``) is not ported yet.
 """
@@ -126,7 +128,9 @@ class Model:
 
     def rollback(self, cache, n_tokens: int):
         """Speculative rollback: rewind ``len`` (entries beyond len are
-        masked by validity, so nothing is copied)."""
+        masked by validity, so nothing is copied).  SSM states cannot be
+        rewound; the JAX package refeeds them instead, which the port does
+        not do yet (speculation is not ported)."""
         out = dict(cache)
         out["len"] = cache["len"] - n_tokens
         return out

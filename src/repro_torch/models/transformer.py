@@ -1,8 +1,16 @@
-"""Block assembly of the port, ``attn`` blocks: head blocks + a repeated
-group + tail blocks, as in ``repro.models.transformer``.  The JAX package
-scans the group over stacked layer params; here the group's params are a
-per-layer list and the loop is a Python loop, while the group's cache keeps
-its leading ``reps`` axis (layer i writes ``cache[...][i]`` in place).
+"""Block assembly of the port: head blocks + a repeated group + tail
+blocks, as in ``repro.models.transformer``.  The JAX package scans the
+group over stacked layer params; here the group's params are a per-layer
+list and the loop is a Python loop, while the group's cache keeps its
+leading ``reps`` axis (layer i writes ``cache[...][i]`` in place).
+
+Block kinds ported so far:
+  attn          GQA transformer block
+  shared_attn   zamba2's shared-weight attention block: the ``attn`` math on
+                ONE set of weights (``params["shared_attn"]``) for every
+                invocation, each with its own K/V cache
+  mamba1        Mamba1 (selective scan) block, pre-norm and residual
+  mamba2        Mamba2 (SSD) block, pre-norm and residual
 """
 from __future__ import annotations
 
@@ -14,6 +22,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.decode_attention.ref import gather_pages
+from repro_torch.models import ssm
 from repro_torch.models.flash import attention_any
 from repro_torch.models.kvcache import check_ported
 from repro_torch.models.layers import (_split_heads, attention_init,
@@ -51,29 +60,41 @@ class Ctx:
 
 def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
                device) -> Params:
-    if kind != "attn":
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported to repro_torch yet (ROADMAP "
-            "Queue 1, 'other architectures')")
     d = cfg.d_model
     dt = torch_dtype(cfg)
-    return {
-        "norm1": rmsnorm_init(d, dt, device),
-        "attn": attention_init(gen, cfg, device),
-        "norm2": rmsnorm_init(d, dt, device),
-        "mlp": mlp_init(gen, d, cfg.d_ff, dt, device),
-    }
+    if kind in ("attn", "shared_attn"):
+        return {
+            "norm1": rmsnorm_init(d, dt, device),
+            "attn": attention_init(gen, cfg, device),
+            "norm2": rmsnorm_init(d, dt, device),
+            "mlp": mlp_init(gen, d, cfg.d_ff, dt, device),
+        }
+    if kind == "mamba1":
+        return {"norm": rmsnorm_init(d, dt, device),
+                "mamba": ssm.mamba1_init(gen, cfg, device)}
+    if kind == "mamba2":
+        return {"norm": rmsnorm_init(d, dt, device),
+                "mamba": ssm.mamba2_init(gen, cfg, device)}
+    raise NotImplementedError(
+        f"block kind {kind!r} is not ported to repro_torch yet (ROADMAP "
+        "Queue 1, 'other architectures')")
 
 
 def stack_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
+    """Per-layer params; a ``shared_attn`` block's weights are built once,
+    at ``params["shared_attn"]``, and its group slot stays empty."""
     head, reps, group, tail = cfg.layer_program
-    return {
+    params: Params = {
         "head": [block_init(gen, cfg, k, device) for k in head],
         "tail": [block_init(gen, cfg, k, device) for k in tail],
-        "group": {f"b{i}": [block_init(gen, cfg, k, device)
-                            for _ in range(reps)]
-                  for i, k in enumerate(group)},
     }
+    if "shared_attn" in head + group + tail:
+        params["shared_attn"] = block_init(gen, cfg, "shared_attn", device)
+    params["group"] = {f"b{i}": ([] if k == "shared_attn" else
+                                 [block_init(gen, cfg, k, device)
+                                  for _ in range(reps)])
+                       for i, k in enumerate(group)}
+    return params
 
 
 # ---------------------------------------------------------------------------
@@ -178,20 +199,36 @@ def _write_kv(cache: Params, k: torch.Tensor, v: torch.Tensor,
 
 def block_apply(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
                 ctx: Ctx, cache: Optional[Params]) -> torch.Tensor:
-    if kind != "attn":
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported to repro_torch yet")
-    x = x + _self_attention(p["attn"], cfg,
-                            rmsnorm(p["norm1"], x, cfg.rms_eps), ctx, cache)
-    return x + mlp_apply(p["mlp"], rmsnorm(p["norm2"], x, cfg.rms_eps))
+    """One block; its ``cache`` (if given) is written in place."""
+    if kind in ("attn", "shared_attn"):
+        x = x + _self_attention(p["attn"], cfg,
+                                rmsnorm(p["norm1"], x, cfg.rms_eps), ctx,
+                                cache)
+        return x + mlp_apply(p["mlp"], rmsnorm(p["norm2"], x, cfg.rms_eps))
+    if kind in ("mamba1", "mamba2"):
+        fn = ssm.mamba1_apply if kind == "mamba1" else ssm.mamba2_apply
+        conv_st = cache["conv"] if cache is not None else None
+        ssm_st = cache["ssm"] if cache is not None else None
+        y, (new_conv, new_ssm) = fn(p["mamba"], cfg,
+                                    rmsnorm(p["norm"], x, cfg.rms_eps),
+                                    conv_st, ssm_st)
+        if cache is not None:
+            cache["conv"].copy_(new_conv)
+            cache["ssm"].copy_(new_ssm)
+        return x + y
+    raise NotImplementedError(
+        f"block kind {kind!r} is not ported to repro_torch yet")
 
 
 def stack_apply(params: Params, cfg: ModelConfig, x: torch.Tensor, ctx: Ctx,
                 cache: Optional[Params]) -> torch.Tensor:
     """Run head blocks, ``reps`` repetitions of the group, tail blocks.
-    ``cache`` (if given) is written in place."""
+    Every ``shared_attn`` of the group runs on ``params["shared_attn"]``
+    with its own repetition's cache.  ``cache`` (if given) is written in
+    place."""
     check_ported(cfg)
     head, reps, group, tail = cfg.layer_program
+    shared = params.get("shared_attn")
     for i, kind in enumerate(head):
         c = cache["head"][i] if cache is not None else None
         x = block_apply(params["head"][i], cfg, kind, x, ctx, c)
@@ -201,8 +238,9 @@ def stack_apply(params: Params, cfg: ModelConfig, x: torch.Tensor, ctx: Ctx,
             if cache is not None:
                 c = {name: leaf[r]
                      for name, leaf in cache["group"][f"b{j}"].items()}
-            x = block_apply(params["group"][f"b{j}"][r], cfg, kind, x, ctx,
-                            c)
+            p = shared if kind == "shared_attn" \
+                else params["group"][f"b{j}"][r]
+            x = block_apply(p, cfg, kind, x, ctx, c)
     for i, kind in enumerate(tail):
         c = cache["tail"][i] if cache is not None else None
         x = block_apply(params["tail"][i], cfg, kind, x, ctx, c)

@@ -14,7 +14,9 @@ registry -- one shared ``TreeCache`` per registered grammar, warmed by
                                 DecodeParams(max_tokens=64)))
 
 ``generate`` serves one request on a dense B=1 cache; ``generate_batch``
-serves many through the continuous-batching scheduler over a paged KV pool.
+serves many through the continuous-batching scheduler, over a paged KV pool
+where every block is full attention and over dense rows otherwise (the
+recurrent state of Mamba1/Mamba2 blocks, zamba2's shared-attention K/V).
 The model runs eagerly (the JAX package jits ``prefill``/``decode_step``).
 The legacy surface -- ``ServingEngine(model, params, tok, grammar,
 EngineConfig(...))`` plus bare-string prompts -- works as in the JAX package.

@@ -1,15 +1,25 @@
-"""Continuous-batching constrained scheduler over a paged KV pool: the
-main-path subset of ``repro.serving.scheduler`` on PyTorch.
+"""Continuous-batching constrained scheduler: the main-path subset of
+``repro.serving.scheduler`` on PyTorch.
 
 A fixed-capacity decode batch whose rows (KV "slots") are admitted and
 evicted independently: a finished request frees its slot at once and the
-next waiting request is prefilled into it.  Per tick:
+next waiting request is prefilled into it.  Architectures whose every
+cache-bearing block is full attention page their KV cache into a shared
+pool; the others (Mamba1, Mamba2 and the hybrid with its shared attention
+block) keep dense per-slot rows: K/V stripes and O(1) recurrent state.
+Per tick:
 
- - admission prefills each request at B=1 (padded to a power-of-two length
-   bucket) and scatters the row into the pool pages the host allocator
-   gave it (``ceil((prompt+1)/page_size)`` pages, not a max_len stripe);
+ - admission prefills each request at B=1 and writes the row into its
+   slot: on the paged layout, padded to a power-of-two length bucket and
+   scattered into the pool pages the host allocator gave it
+   (``ceil((prompt+1)/page_size)`` pages, not a max_len stripe); on the
+   dense layout of a recurrent architecture, at its exact length (pads
+   would enter the recurrent state) and copied over the slot's row, conv
+   and SSM state included, so whatever a vacant row held is overwritten;
  - one batched decode forward runs over all slots (the decode-attention
-   kernel walks each row's pages up to its own frontier);
+   kernel walks each row's pages, or its dense stripe, up to its own
+   frontier; the scan kernels advance every row's recurrent state one
+   step, vacant rows' included, which is harmless garbage);
  - the host DOMINO checkers build packed ``uint32`` mask rows -- the next
    tick's while the card runs this one -- staged in ONE persistent
    ``(capacity, ceil(V/32))`` buffer (vacant slots keep a sentinel row,
@@ -96,7 +106,7 @@ class PagePool:
 
 def _scatter_row(dst, src, slot: int):
     """Write a B=1 row cache ``src`` into row ``slot`` of a dense batch
-    cache."""
+    cache: every leaf, K/V stripes and SSM conv/ssm states alike."""
     dst["len"][slot] = src["len"]
     for dc, sc in zip(dst["head"] + dst["tail"], src["head"] + src["tail"]):
         for name in dc:
@@ -243,7 +253,8 @@ class ContinuousBatchingScheduler:
 
     def stats(self) -> Dict[str, object]:
         """Operational counters for benchmarks and monitoring."""
-        return dict(n_fwd=self.n_fwd, n_decode=self.n_decode,
+        return dict(paged=self.paged, n_fwd=self.n_fwd,
+                    n_decode=self.n_decode,
                     n_preempt=self.n_preempt,
                     n_host_syncs=self.n_host_syncs,
                     premask_hits=self.premask_hits,

@@ -8,14 +8,16 @@ PyTorch:
 
 Tolerances: the argmax is bitwise; float32 attention atol 1e-5 (only the
 summation order differs); bfloat16 attention atol = rtol = 2e-2 in float32,
-about one bf16 ulp of the output."""
+about one bf16 ulp of the output; the two scans atol = rtol = 1e-4 in
+float32 (the kernels walk the recurrence step by step, the plain SSD scan
+is chunked, and the orders of the sums over the state differ)."""
 import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, SSMConfig
 from repro_torch.kernels.decode_attention import kernel as attn_kernel
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.decode_attention.ref import (decode_attention_ref,
@@ -23,8 +25,16 @@ from repro_torch.kernels.decode_attention.ref import (decode_attention_ref,
 from repro_torch.kernels.masked_sample import kernel as mask_kernel
 from repro_torch.kernels.masked_sample.ops import masked_argmax
 from repro_torch.kernels.masked_sample.ref import masked_argmax_ref
+from repro_torch.kernels.mamba_scan import kernel as mamba_kernel
+from repro_torch.kernels.mamba_scan.ops import mamba_scan
+from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
+from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+from repro_torch.kernels.ssd_scan.ops import ssd_scan
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 from repro_torch.models import build_model
-from torch_cases import mask_case, paged_case
+from torch_cases import mamba_inputs, mask_case, paged_case, ssd_inputs
+
+SCAN_TOL = dict(atol=1e-4, rtol=1e-4)
 
 
 @pytest.fixture
@@ -114,3 +124,97 @@ def test_paged_decode_kernel_route_matches_plain_route(cuda_device):
         torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-4)
         i += width
     assert attn_kernel.decode_attention_cuda.launches == before + 3 * 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,d,n", [(4, 1, 8192, 16), (1, 37, 8192, 16),
+                                     (2, 100, 48, 8), (1, 300, 256, 64),
+                                     (3, 5, 130, 5)])
+def test_mamba_scan_kernel_matches_plain(cuda_device, b, s, d, n):
+    """Nonzero h0, ragged channel tiles, N below and at the limit; and two
+    calls that carry hT equal one call."""
+    inp = [torch.from_numpy(x).to(cuda_device)
+           for x in mamba_inputs(b, s, d, n, seed=s + d)]
+    before = mamba_kernel.mamba_scan_cuda.launches
+    y, h = mamba_scan(*inp)
+    assert mamba_kernel.mamba_scan_cuda.launches == before + 1
+    y_p, h_p = mamba_scan_ref(*inp)
+    torch.testing.assert_close(y, y_p, **SCAN_TOL)
+    torch.testing.assert_close(h, h_p, **SCAN_TOL)
+    if s > 1:
+        cut = s // 2
+        dt, x, bm, cm, a, h0 = inp
+        y1, h1 = mamba_scan(dt[:, :cut].contiguous(), x[:, :cut].contiguous(),
+                            bm[:, :cut].contiguous(), cm[:, :cut].contiguous(),
+                            a, h0)
+        y2, h2 = mamba_scan(dt[:, cut:].contiguous(), x[:, cut:].contiguous(),
+                            bm[:, cut:].contiguous(), cm[:, cut:].contiguous(),
+                            a, h1)
+        torch.testing.assert_close(torch.cat([y1, y2], 1), y, **SCAN_TOL)
+        torch.testing.assert_close(h2, h, **SCAN_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,d,n", [(4, 1, 64, 64, 64), (1, 37, 64, 64, 64),
+                                       (1, 300, 4, 64, 64), (2, 96, 6, 8, 4),
+                                       (1, 20, 2, 128, 128), (2, 17, 3, 7, 5)])
+def test_ssd_scan_kernel_matches_plain(cuda_device, b, s, h, d, n):
+    inp = [torch.from_numpy(x).to(cuda_device)
+           for x in ssd_inputs(b, s, h, d, n, seed=s + h)]
+    chunk = min(128, s)
+    before = ssd_kernel.ssd_scan_cuda.launches
+    y, hT = ssd_scan(*inp, chunk=chunk)
+    assert ssd_kernel.ssd_scan_cuda.launches == before + 1
+    y_p, h_p = ssd_scan_ref(*inp, chunk=chunk)
+    torch.testing.assert_close(y, y_p, **SCAN_TOL)
+    torch.testing.assert_close(hT, h_p, **SCAN_TOL)
+    if s > 1:
+        cut = s // 2
+        first = [t[:, :cut].contiguous() for t in inp[:5]]
+        second = [t[:, cut:].contiguous() for t in inp[:5]]
+        y1, h1 = ssd_scan(*first, inp[5])
+        y2, h2 = ssd_scan(*second, h1)
+        torch.testing.assert_close(torch.cat([y1, y2], 1), y, **SCAN_TOL)
+        torch.testing.assert_close(h2, hT, **SCAN_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group,ssm", [
+    (("mamba1",), dict(d_state=8, version=1)),
+    (("mamba2", "mamba2", "shared_attn"),
+     dict(d_state=8, version=2, head_dim=16))])
+def test_recurrent_kernel_route_matches_plain_route(cuda_device, group, ssm):
+    """A small float32 SSM / hybrid model prefills and decodes ragged rows
+    through the scan (and contiguous attention) kernels and through the
+    plain path: the logits agree, and each scan launches once a layer."""
+    cfg = ModelConfig(arch_id="tr", family="ssm", n_layers=4, d_model=64,
+                      n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=128,
+                      dtype="float32", max_seq_len=64, group=group,
+                      ssm=SSMConfig(**ssm))
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(0)
+    plain = build_model(cfg)
+    params = plain.init(gen, device=cuda_device)
+    kern = build_model(dataclasses.replace(cfg, use_pallas_kernels=True))
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 128, (2, 9))).to(cuda_device)
+    counts = (mamba_kernel.mamba_scan_cuda.launches,
+              ssd_kernel.ssd_scan_cuda.launches)
+    outs = []
+    for model in (plain, kern):
+        c = model.init_cache(2, 32, device=cuda_device)
+        lg, c = model.prefill(params, {"tokens": toks[:, :6]}, c)
+        got = [lg]
+        c["len"] = torch.tensor([6, 4], dtype=torch.int32,
+                                device=cuda_device)
+        for i in range(6, 9):
+            lg, c = model.decode_step(params, c, toks[:, i:i + 1])
+            got.append(lg)
+        outs.append(got)
+    for a, b in zip(*outs):
+        torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-4)
+    n_scan = 4 * 4                  # 4 SSM layers, 1 prefill + 3 decodes
+    if group[0] == "mamba1":
+        assert mamba_kernel.mamba_scan_cuda.launches == counts[0] + n_scan
+    else:
+        assert ssd_kernel.ssd_scan_cuda.launches == counts[1] + n_scan

@@ -3,18 +3,21 @@
 statuses, interventions and forward counts must be equal, for the
 single-request path and for the continuous-batching scheduler (paged with a
 pool small enough to force recompute preemption, and contiguous), with
-DOMINO and unconstrained rows in one batch.  float32 on the CPU; the port's
-kernel wrappers take their plain versions here."""
+DOMINO and unconstrained rows in one batch.  The recurrent families (a
+Mamba1 stack, a Mamba2 + shared-attention hybrid) serve on the dense
+layout with exact-length admission, and must match too.  float32 on the
+CPU; the port's kernel wrappers take their plain versions here."""
 import jax
 import numpy as np
 import pytest
 import torch
 
-from repro.configs.base import ModelConfig
+from repro.configs.base import ModelConfig, SSMConfig
 from repro.models import build_model
 from repro.serving import (ConstraintSpec, DecodeParams, EngineConfig,
                            Request, ServingEngine)
 from repro_torch.configs.base import ModelConfig as TModelConfig
+from repro_torch.configs.base import SSMConfig as TSSMConfig
 from repro_torch.models import build_model as t_build_model
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.serving import ConstraintSpec as TConstraintSpec
@@ -128,3 +131,86 @@ def test_engine_defaults_to_the_card(engines, small_tokenizer):
     _, teng = engines[False]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TServingEngine(teng.model, teng.params, small_tokenizer)
+
+
+RECURRENT = {
+    "mamba1": dict(family="ssm", group=("mamba1",),
+                   ssm=dict(d_state=8, version=1)),
+    "hybrid": dict(family="hybrid",
+                   group=("mamba2", "mamba2", "shared_attn"),
+                   ssm=dict(d_state=8, version=2, head_dim=16)),
+}
+
+
+@pytest.fixture(scope="module")
+def recurrent_engines(small_tokenizer, json_grammar):
+    """family -> (JAX engine, {kernels: port engine}) on one set of
+    weights; the JAX side takes its plain route."""
+    tok = small_tokenizer
+    out = {}
+    for family, f in RECURRENT.items():
+        kw = dict(BASE, arch_id=f"ts-{family}", family=f["family"],
+                  group=f["group"], vocab_size=tok.vocab_size)
+        cfg = ModelConfig(ssm=SSMConfig(**f["ssm"]), **kw)
+        m = build_model(cfg)
+        params = m.init(jax.random.PRNGKey(1))
+        eng = ServingEngine(m, params, tok, json_grammar,
+                            EngineConfig(mode="domino", max_tokens=10),
+                            max_len=256)
+        ports = {}
+        for kernels in (False, True):
+            tcfg = TModelConfig(ssm=TSSMConfig(**f["ssm"]),
+                                use_pallas_kernels=kernels, **kw)
+            tparams = params_from_numpy(jax.tree.map(np.asarray, params),
+                                        tcfg)
+            ports[kernels] = TServingEngine(
+                t_build_model(tcfg), tparams, tok, json_grammar,
+                TEngineConfig(mode="domino", max_tokens=10), max_len=256,
+                device="cpu")
+        out[family] = (eng, ports)
+    return out
+
+
+@pytest.mark.parametrize("kernels", [False, True])
+@pytest.mark.parametrize("family", list(RECURRENT))
+def test_recurrent_generate_matches(recurrent_engines, family, kernels):
+    eng, ports = recurrent_engines[family]
+    _same([eng.generate(p) for p in PROMPTS[:2]],
+          [ports[kernels].generate(p) for p in PROMPTS[:2]])
+
+
+@pytest.mark.parametrize("kernels", [False, True])
+@pytest.mark.parametrize("family", list(RECURRENT))
+def test_recurrent_generate_batch_matches_with_slot_reuse(
+        recurrent_engines, family, kernels):
+    """Five requests through two dense slots (exact-length admission, the
+    recurrent state scattered into the reused slot) equal the JAX
+    scheduler's results and the port's own single-request results."""
+    eng, ports = recurrent_engines[family]
+    teng = ports[kernels]
+    got = teng.generate_batch(PROMPTS, max_batch=2)
+    assert sum(g.n_tokens for g in got) > len(PROMPTS)
+    _same(eng.generate_batch(PROMPTS, max_batch=2), got)
+    assert [teng.generate(p).token_ids for p in PROMPTS] == \
+        [g.token_ids for g in got]
+
+
+def test_recurrent_arch_serves_dense_and_refuses_paging(recurrent_engines):
+    from repro_torch.serving.scheduler import ContinuousBatchingScheduler
+    _, ports = recurrent_engines["hybrid"]
+    assert ContinuousBatchingScheduler(ports[True], capacity=2).paged \
+        is False
+    with pytest.raises(ValueError, match="paged"):
+        ContinuousBatchingScheduler(ports[True], capacity=2, paged=True)
+
+
+@pytest.mark.parametrize("arch,layout", [("zamba2-1.2b", "contiguous KV"),
+                                         ("stablelm-1.6b", "paged KV")])
+def test_serve_cli_prints_the_layout_the_scheduler_chose(capsys, arch,
+                                                         layout):
+    from repro_torch.launch import serve
+    serve.main(["--arch", arch, "--smoke", "--kernels", "--prompts", "2",
+                "--max-tokens", "2", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert f"2 slots, {layout}]" in out
+    assert out.count("out[status=") == 2

@@ -53,3 +53,29 @@ def paged_case(s_win, seed, garbage=1e3):
     vp[foreign] = -garbage
     q = rng.normal(size=(B, s_win, G, QH, D)).astype(np.float32)
     return q, kp, vp, np.asarray(LENS, np.int32), tbl
+
+
+def mamba_inputs(b, s, d, n, seed):
+    """Selective-scan operands at the scales of ``tests/test_kernels.py``:
+    dt (B,S,d) = 0.1 |N(0,1)|, x (B,S,d), bmat / cmat (B,S,N), a (d,N) =
+    -|N(0,1)|, h0 (B,d,N), all float32."""
+    rng = np.random.default_rng(seed)
+    return (np.abs(rng.normal(size=(b, s, d))).astype(np.float32) * 0.1,
+            rng.normal(size=(b, s, d)).astype(np.float32),
+            rng.normal(size=(b, s, n)).astype(np.float32),
+            rng.normal(size=(b, s, n)).astype(np.float32),
+            -np.abs(rng.normal(size=(d, n))).astype(np.float32),
+            rng.normal(size=(b, d, n)).astype(np.float32))
+
+
+def ssd_inputs(b, s, h, d, n, seed):
+    """SSD-scan operands at the scales of ``tests/test_kernel_ssd.py``:
+    x (B,S,H,D), b / c (B,S,N), ld (B,S,H) = -0.3 |N(0,1)|, dt (B,S,H) =
+    0.2 |N(0,1)|, h0 (B,H,D,N), all float32."""
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, s, h, d)).astype(np.float32),
+            rng.normal(size=(b, s, n)).astype(np.float32),
+            rng.normal(size=(b, s, n)).astype(np.float32),
+            -np.abs(rng.normal(size=(b, s, h))).astype(np.float32) * 0.3,
+            np.abs(rng.normal(size=(b, s, h))).astype(np.float32) * 0.2,
+            rng.normal(size=(b, h, d, n)).astype(np.float32))
