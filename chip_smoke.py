@@ -10,12 +10,17 @@ non-zero without the final result line):
 
  1. environment and kernel build: the card's name and power limit, torch
     and CUDA versions, the nvcc build of every kernel from ``csrc/``;
- 2. packed masked argmax, kernel vs plain version on the card (bitwise);
+ 2. masked argmax, packed-word and byte-mask kernels vs the plain version
+    on the card (bitwise), and the byte-mask kernel vs the packed kernel on
+    the packed form of the same mask (bitwise);
  3. decode attention, kernel vs plain version on the card: paged
     (shuffled tables, -1 vacancies, foreign pages poisoned with NaN) and
     contiguous, S in {1, 3}, float32 (atol 1e-5: only the summation order
     differs) and bfloat16 (atol = rtol = 2e-2 in float32: about one bf16
-    ulp of the output);
+    ulp of the output); and the split-score kernel of absorbed MLA at
+    deepseek-v3's width (128 heads, latent 512, rope 64), paged and
+    contiguous, S in {1, 2}, float32 (atol = rtol = 1e-4: 576-long dot
+    products in another order) and bfloat16 (2e-2), NaN-poisoned pools;
  4. the Mamba1 selective scan and the Mamba2 SSD scan, kernel vs plain
     version on the card in float32 (atol = rtol = 1e-4: the kernels walk
     the recurrence step by step, the plain SSD scan is chunked, and the
@@ -26,14 +31,22 @@ non-zero without the final result line):
     ``ServingEngine.generate_batch`` with the DOMINO JSON grammar, 4
     requests in 4 slots, 32 tokens each: stablelm-1.6b over a paged KV
     pool, then falcon-mamba-7b (Mamba1) and zamba2-1.2b (Mamba2 with a
-    shared attention block) on dense rows of recurrent state.  For each:
+    shared attention block) on dense rows of recurrent state, then
+    deepseek-v3-671b (MLA + 256-expert MoE) over a paged latent pool, its
+    depth cut to fit one card (``DEPTH``: 1 layer in float32, 2 in
+    bfloat16; every width as published).  Each model's weights are freed
+    before the next is drawn.  For each:
     (a) float32 through the kernels against the same requests through the
     plain path (greedy ids and statuses equal), (b) bfloat16 through the
     kernels (tokens/s, the tick's breakdown, launches a tick).  Every
     kernel counter is set to 0 just before a run and read just after it;
     a kernel of the model's path that did not launch, or launched another
     number of times than its layers say, fails the phase;
- 6. each kernel's launches on the serving paths, its parity, and its time
+ 6. the public ``masked_argmax`` op on byte masks (the entry point that
+    reaches the byte-mask kernel, which no serving path calls): the
+    deepseek-v3 bf16 run's ticks replayed through it with their masks
+    unpacked to bytes, counters reset just before and read just after;
+ 7. each kernel's launches on the serving paths, its parity, and its time
     beside its plain version, its bound and a library yardstick, on the
     inputs a serving path gave it.
 
@@ -52,20 +65,29 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
-MODELS = ("stablelm-1.6b", "falcon-mamba-7b", "zamba2-1.2b")
+MODELS = ("stablelm-1.6b", "falcon-mamba-7b", "zamba2-1.2b",
+          "deepseek-v3-671b")
+# depth cuts that fit one 80 GB card, by dtype (widths stay as published):
+# one deepseek-v3 layer is 11.5 B parameters, the embedding and head 1.9 B
+DEPTH = {"deepseek-v3-671b": {"float32": 1, "bfloat16": 2}}
 N_REQUESTS = 4
 MAX_TOKENS = 32
 PAGE_SIZE = 64
 MAX_LEN = 1024
 SCAN_TOL = 1e-4
+SPLIT_TOL = 1e-4           # split-score attention, float32
 PROMPTS = ["A person encoded as a JSON object: ", "Results: ", "Config: ",
            "Data record: "]
 # kernel name -> (package of its launch wrapper, the wrapper's name)
 KERNELS = {
     "decode_attention": ("repro_torch.kernels.decode_attention",
                          "decode_attention_cuda"),
+    "decode_attention_split": ("repro_torch.kernels.decode_attention",
+                               "decode_attention_split_cuda"),
     "masked_argmax_packed": ("repro_torch.kernels.masked_sample",
                              "masked_argmax_packed"),
+    "masked_argmax_bytes": ("repro_torch.kernels.masked_sample",
+                            "masked_argmax_bytes"),
     "mamba_scan": ("repro_torch.kernels.mamba_scan", "mamba_scan_cuda"),
     "ssd_scan": ("repro_torch.kernels.ssd_scan", "ssd_scan_cuda"),
 }
@@ -170,8 +192,13 @@ def _mask_case(torch, gen, b, v, stride):
 
 
 def phase_masked_argmax(torch):
-    from repro_torch.kernels.masked_sample.kernel import masked_argmax_packed
-    from repro_torch.kernels.masked_sample.ref import masked_argmax_ref
+    """Both argmax kernels against the plain version, and the byte-mask
+    kernel against the packed one; returns {"long": (ms, plain ms, bound
+    ms)} of the byte-mask kernel at B=4, V=129280."""
+    from repro_torch.kernels.masked_sample.kernel import (masked_argmax_bytes,
+                                                          masked_argmax_packed)
+    from repro_torch.kernels.masked_sample.ref import (masked_argmax_ref,
+                                                       unpack_bits)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     for b in (1, 4, 64):
@@ -192,6 +219,38 @@ def phase_masked_argmax(torch):
                       4 * 100352, "float32")
     log(f"[argmax] B=4 V=100352: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
         f"bound {bnd:.5f} ms")
+    # the byte-mask kernel: bool and int8 masks (any nonzero byte legal),
+    # bitwise against the plain version and the packed kernel
+    for b in (4, 64):
+        for v in (403, 129280):
+            logits, bits = _mask_case(torch, gen, b, v, v + 96)
+            i_w, v_w = masked_argmax_packed(logits, bits)
+            for name, mask in (("bool", unpack_bits(bits, v)),
+                               ("int8", unpack_bits(bits, v).to(torch.int8)
+                                * -3)):
+                i1, v1 = masked_argmax_bytes(logits, mask)
+                i2, v2 = masked_argmax_ref(logits, mask)
+                torch.cuda.synchronize()
+                for what, (i3, v3) in (("plain", (i2, v2)),
+                                       ("packed kernel", (i_w, v_w))):
+                    if not (torch.equal(i1, i3) and torch.equal(v1, v3)):
+                        bad = (i1 != i3).nonzero().flatten()[:4].tolist()
+                        raise AssertionError(
+                            f"byte-mask argmax B={b} V={v} {name}: kernel "
+                            f"differs from the {what} at rows {bad}")
+                if i1[0].item() != 0 \
+                        or v1[0].item() != torch.tensor(-1e30).item():
+                    raise AssertionError("byte-mask argmax: all-illegal row")
+            log(f"[argmax] byte mask B={b} V={v} bool and int8: bitwise "
+                "equal to plain and to the packed kernel")
+    logits, bits = _mask_case(torch, gen, 4, 129280, 129280)
+    mask = unpack_bits(bits, 129280)
+    k_ms = time_ms(torch, lambda: masked_argmax_bytes(logits, mask))
+    p_ms = time_ms(torch, lambda: masked_argmax_ref(logits, mask))
+    bnd, _ = bound_ms(4 * 129280 * (4 + 1) + 4 * 8, 4 * 129280, "float32")
+    log(f"[argmax] byte mask B=4 V=129280: kernel {k_ms:.4f} ms, plain "
+        f"{p_ms:.4f} ms, bound {bnd:.5f} ms")
+    return {"long": (k_ms, p_ms, bnd), "long_shape": "B=4 V=129280"}
 
 
 # -- phase 3 --------------------------------------------------------------------
@@ -281,6 +340,149 @@ def phase_decode_attention(torch):
     log(f"[attn] bf16 B=4 G=32 D=64 1000 keys/row: kernel {k_ms:.4f} ms, "
         f"plain {p_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
         f"{_attn_bound(q, kp, ln, tbl, 'bfloat16')[0]:.5f} ms")
+
+
+def _split_case(torch, gen, dtype, s_win, lens, poison, h=128, r=512,
+                d2=64):
+    """Absorbed-MLA split-score inputs at deepseek-v3's width: q_lat
+    (B,S,1,h,r), q_rope (B,S,1,h,d2), a latent pool (n_pages, 64, 1, r) --
+    key and value -- and a rope pool (n_pages, 64, 1, d2), lengths and a
+    shuffled table with -1 vacancies; pages no row owns poisoned with NaN
+    when ``poison``."""
+    b, ps, mp = len(lens), PAGE_SIZE, 20
+    n_pages = 1 + b * mp
+    lat = torch.randn((n_pages, ps, 1, r), generator=gen, device="cuda")
+    rp = torch.randn((n_pages, ps, 1, d2), generator=gen, device="cuda")
+    perm = (torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1) \
+        .tolist()
+    tbl = torch.full((b, mp), -1, dtype=torch.int32)
+    owned = []
+    for i, ln in enumerate(lens):
+        n = -(-(ln + s_win - 1) // ps)
+        tbl[i, :n] = torch.tensor(perm[:n], dtype=torch.int32)
+        owned += perm[:n]
+        del perm[:n]
+    if poison:
+        foreign = torch.ones(n_pages, dtype=torch.bool)
+        foreign[owned] = False
+        lat[foreign.cuda()] = float("nan")
+        rp[foreign.cuda()] = float("nan")
+    q = torch.randn((b, s_win, 1, h, r), generator=gen, device="cuda")
+    q2 = torch.randn((b, s_win, 1, h, d2), generator=gen, device="cuda")
+    return (q.to(dtype), q2.to(dtype), lat.to(dtype), rp.to(dtype),
+            torch.tensor(lens, dtype=torch.int32, device="cuda"), tbl.cuda())
+
+
+def _check_split(torch, got, want, dtype, what):
+    tol = SPLIT_TOL if dtype == torch.float32 else 2e-2
+    err = (got.float() - want.float()).abs().max().item()
+    if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol) \
+            or not torch.isfinite(got).all():
+        raise AssertionError(f"split-score attention {what}: max abs err "
+                             f"{err} beyond atol = rtol = {tol}")
+    return err
+
+
+def phase_split_attention(torch):
+    """The split-score kernel against its plain version at deepseek-v3's
+    width; returns {"long": (ms, plain ms, library ms, bound ms)} at B=4,
+    1000 keys a row, bf16."""
+    from repro_torch.kernels.decode_attention.kernel import \
+        decode_attention_split_cuda as split
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_ref, gather_pages)
+    gen = torch.Generator(device="cuda")
+    scale = 1.0 / math.sqrt(192)
+    lens = [0, 1, 63, 64, 65, 1000]
+    for dtype in (torch.float32, torch.bfloat16):
+        for s_win in (1, 2):
+            gen.manual_seed(6)
+            q, q2, lat, rp, ln, tbl = _split_case(torch, gen, dtype, s_win,
+                                                  lens, False)
+            gen.manual_seed(6)
+            dirty = _split_case(torch, gen, dtype, s_win, lens, True)
+            out = split(q, lat, lat, q2, rp, ln, scale=scale,
+                        block_tables=tbl)
+            out_dirty = split(dirty[0], dirty[2], dirty[2], dirty[1],
+                              dirty[3], dirty[4], scale=scale,
+                              block_tables=dirty[5])
+            want = decode_attention_ref(q, lat, lat, ln, scale=scale, q2=q2,
+                                        k2=rp, block_tables=tbl)
+            torch.cuda.synchronize()
+            name = str(dtype).split(".")[-1]
+            err = _check_split(torch, out, want, dtype,
+                               f"paged {name} S={s_win}")
+            if not torch.equal(out, out_dirty):
+                raise AssertionError("split-score attention: NaN in foreign "
+                                     "pages changed the output")
+            if out[0, 0].abs().max().item() != 0.0:
+                raise AssertionError("split-score attention: empty row not 0")
+            kd = gather_pages(lat, tbl).contiguous()
+            k2d = gather_pages(rp, tbl).contiguous()
+            out_c = split(q, kd, kd, q2, k2d, ln, scale=scale)
+            want_c = decode_attention_ref(q, kd, kd, ln, scale=scale, q2=q2,
+                                          k2=k2d)
+            torch.cuda.synchronize()
+            err_c = _check_split(torch, out_c, want_c, dtype,
+                                 f"contiguous {name} S={s_win}")
+            log(f"[split] {name} S={s_win} H=128 R=512 D2=64 lens={lens}: "
+                f"paged err {err:.2e}, poisoned pool bitwise equal, "
+                f"contiguous err {err_c:.2e}")
+    gen.manual_seed(7)
+    q, q2, lat, rp, ln, tbl = _split_case(torch, gen, torch.bfloat16, 1,
+                                          [1000] * 4, False)
+    k_ms = time_ms(torch, lambda: split(q, lat, lat, q2, rp, ln, scale=scale,
+                                        block_tables=tbl))
+    p_ms = time_ms(torch, lambda: decode_attention_ref(
+        q, lat, lat, ln, scale=scale, q2=q2, k2=rp, block_tables=tbl), n=10)
+    lib_ms = time_ms(torch, _split_sdpa_yardstick(torch, q, q2, lat, rp, ln,
+                                                  tbl, scale))
+    bnd, by = _split_bound(q, q2, lat, ln, tbl, "bfloat16")
+    log(f"[split] bf16 B=4 H=128 R=512 D2=64 1000 keys/row: kernel "
+        f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+        f"{bnd:.5f} ms by {by}")
+    return {"long": (k_ms, p_ms, lib_ms, bnd),
+            "long_shape": "B=4 S=1 H=128 R=512 D2=64, 1000 keys a row, bf16"}
+
+
+def _split_sdpa_yardstick(torch, q, q2, lat, rp, ln, tbl, scale):
+    """One library attention call computing the split score's function:
+    queries [q || q2] against keys [latent || rope] with the latent as
+    values (Dk = R + D2, Dv = R), pages gathered and concatenated
+    beforehand (not timed).  A yardstick only: the port never calls it."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention.ref import gather_pages
+    b, s_win, g, qh, r = q.shape
+    kd, k2d = (lat, rp) if tbl is None else (gather_pages(lat, tbl),
+                                              gather_pages(rp, tbl))
+    t = kd.shape[1]
+    qs = torch.cat([q, q2], -1).permute(0, 2, 3, 1, 4).reshape(
+        b, g * qh, s_win, -1)
+    ks = torch.cat([kd, k2d], -1).permute(0, 2, 1, 3) \
+        .repeat_interleave(qh, dim=1)
+    vs = kd.permute(0, 2, 1, 3).repeat_interleave(qh, dim=1)
+    lim = ln.long()[:, None] + torch.arange(s_win, device=q.device)
+    mask = (torch.arange(t, device=q.device)[None, None, :]
+            < lim[:, :, None])[:, None]
+    return lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                                  scale=scale)
+
+
+def _split_bound(q, q2, lat, ln, tbl, dtype):
+    """Each visible key's latent and rope rows read once, q, q2 read and
+    the output written once; 2 (R + D2) + 2 R flops a (key, query row)."""
+    b, s_win, g, qh, r = q.shape
+    d2 = q2.shape[-1]
+    cap = lat.shape[1] if tbl is None else tbl.shape[1] * lat.shape[1]
+    keys = sum(max(0, min(int(x) + s_win - 1, cap)) for x in ln.tolist())
+    pairs = sum(max(0, min(int(x) + s, cap)) for x in ln.tolist()
+                for s in range(s_win)) * g * qh
+    esize = q.element_size()
+    n_bytes = (keys * g * (r + d2) * esize + b * s_win * g * qh
+               * (2 * r + d2) * esize + ln.numel() * 4
+               + (0 if tbl is None else tbl.numel() * 4))
+    return bound_ms(n_bytes, pairs * (4 * r + 2 * d2), dtype)
 
 
 def _sdpa_yardstick(torch, q, kp, vp, ln, tbl):
@@ -498,10 +700,15 @@ def path_kernels(cfg):
     launches per decode forward and per admission prefill."""
     head, reps, group, tail = cfg.layer_program
     blocks = list(head) + list(group) * reps + list(tail)
-    n_attn = sum(b in ("attn", "shared_attn") for b in blocks)
+    mla = [b == "mla" or (b == "moe" and cfg.mla is not None)
+           for b in blocks]
+    n_attn = sum(b in ("attn", "shared_attn", "moe") and not m
+                 for b, m in zip(blocks, mla))
     out = {"masked_argmax_packed": None}      # one a selection tick
     if n_attn:
         out["decode_attention"] = (n_attn, 0)  # prefill attends densely
+    if sum(mla):                               # prefill runs full MLA
+        out["decode_attention_split"] = (sum(mla), 0)
     if blocks.count("mamba1"):
         out["mamba_scan"] = (blocks.count("mamba1"),) * 2
     if blocks.count("mamba2") and cfg.ssm.n_groups == 1:
@@ -540,9 +747,20 @@ def describe(cfg) -> str:
               + (f", {d_in // sc.head_dim} SSM heads of {sc.head_dim}, "
                  f"{sc.n_groups} group(s)" if sc.version == 2 else
                  f", dt_rank {max(1, cfg.d_model // 16)}"))
-    if any(b in ("attn", "shared_attn") for b in group + head + tail):
+    if cfg.mla is not None:
+        m = cfg.mla
+        s += (f", MLA {cfg.n_heads} heads, q_lora {m.q_lora_rank}, kv_lora "
+              f"{m.kv_lora_rank}, nope/rope {m.qk_nope_head_dim}/"
+              f"{m.qk_rope_head_dim}, v_head {m.v_head_dim}")
+    elif any(b in ("attn", "shared_attn", "moe")
+             for b in group + head + tail):
         s += (f", attention {cfg.n_heads} heads ({cfg.n_kv_heads} kv) of "
               f"{cfg.d_head}, d_ff {cfg.d_ff}")
+    if cfg.moe is not None:
+        mo = cfg.moe
+        s += (f", MoE {mo.n_experts} experts top-{mo.top_k} of d_ff "
+              f"{mo.d_ff_expert}, {mo.n_shared_experts} shared, capacity "
+              f"factor {mo.capacity_factor}")
     return s
 
 
@@ -556,6 +774,7 @@ def phase_serve(torch, arch, shared):
     from repro_torch.kernels.masked_sample import ops as mask_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.models import build_model, kvcache
+    from repro_torch.models import layers as layers_mod
     from repro_torch.serving import (ConstraintSpec, DecodeParams, Request,
                                      ServingEngine)
     from repro_torch.serving.scheduler import ContinuousBatchingScheduler
@@ -563,21 +782,36 @@ def phase_serve(torch, arch, shared):
     tok, json_g = shared["tok"], shared["grammar"]
     base = get_config(arch)
     paged = kvcache.pageable(base)
+
+    def cfg_for(dtype, kernels=True):
+        depth = DEPTH.get(arch, {}).get(dtype)
+        cut = {} if depth is None else {"n_layers": depth}
+        return dataclasses.replace(base, dtype=dtype,
+                                   use_pallas_kernels=kernels, **cut)
+
     log(f"[serve] {describe(base)} (logits sliced to the tokenizer's "
-        f"{tok.vocab_size}); {'paged KV pool' if paged else 'dense rows'}")
+        f"{tok.vocab_size}); {'paged KV pool' if paged else 'dense rows'}"
+        + (f"; depth cut to {DEPTH[arch]}" if arch in DEPTH else ""))
     requests = [Request(PROMPTS[i % len(PROMPTS)],
                         ConstraintSpec(grammar="json", mode="domino"),
                         DecodeParams(max_tokens=MAX_TOKENS, seed=i))
                 for i in range(N_REQUESTS)]
 
     def engine_for(dtype, kernels, params=None):
-        cfg = dataclasses.replace(base, dtype=dtype,
-                                  use_pallas_kernels=kernels)
-        model = build_model(cfg)
+        model = build_model(cfg_for(dtype, kernels))
         if params is None:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
             gen = torch.Generator(device="cuda")
             gen.manual_seed(0)
             params = model.init(gen, device="cuda")
+            torch.cuda.synchronize()
+            n = sum(x.numel() for x in _leaves(params))
+            log(f"[serve] {arch} {dtype} weights drawn on the card in "
+                f"{time.perf_counter() - t0:.1f}s: "
+                f"{model.cfg.n_layers} layers, {n / 1e9:.2f} B parameters, "
+                f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+                f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
         eng = ServingEngine(model, params, tok, max_len=MAX_LEN,
                             device="cuda")
         shared["trees"] = eng.register_grammar("json", json_g,
@@ -599,11 +833,8 @@ def phase_serve(torch, arch, shared):
                                      "the JSON grammar")
 
     # (a) float32: kernel path vs plain path, same weights and requests
-    t0 = time.perf_counter()
+    cfg32 = cfg_for("float32")
     eng_k = engine_for("float32", True)
-    torch.cuda.synchronize()
-    log(f"[serve] {arch} f32 weights drawn on the card in "
-        f"{time.perf_counter() - t0:.1f}s")
     if not shared.get("precomputed"):
         t0 = time.perf_counter()
         eng_k.precompute()
@@ -620,13 +851,13 @@ def phase_serve(torch, arch, shared):
     check_valid(res_k, f"{arch} f32 kernel run")
     check_valid(res_p, f"{arch} f32 plain run")
     log(f"[serve] {arch} f32 kernel run: launches "
-        + ", ".join(f"{k} {counts[k]}" for k in path_kernels(base))
+        + ", ".join(f"{k} {counts[k]}" for k in path_kernels(cfg32))
         + f"; {stats['n_decode']} decode ticks, "
         f"{stats['n_fwd'] - stats['n_decode']} admissions, layout "
         f"{'paged' if stats['paged'] else 'dense'}")
     if stats["paged"] != paged:
         raise AssertionError(f"{arch}: the scheduler chose the wrong layout")
-    check_launches(base, counts, stats, f"{arch} f32 kernel run")
+    check_launches(cfg32, counts, stats, f"{arch} f32 kernel run")
     for i, (a, b) in enumerate(zip(res_k, res_p)):
         log(f"[serve] {arch} f32 request {i}: status {a.status}, "
             f"{a.n_tokens} tokens, {a.n_interventions} interventions: "
@@ -657,13 +888,16 @@ def phase_serve(torch, arch, shared):
     torch.cuda.empty_cache()
 
     # (b) bfloat16, the published dtype, through the kernels
+    cfg16 = cfg_for("bfloat16")
     eng = engine_for("bfloat16", True)
     serve(eng)                                    # warm-up
     torch.cuda.synchronize()
-    head, reps, group, tail = base.layer_program
+    head, reps, group, tail = cfg16.layer_program
     blocks = list(head) + list(group) * reps + list(tail)
     recs = {
         "decode_attention": Recorder(attn_ops, "decode_attention_cuda"),
+        "decode_attention_split": Recorder(attn_ops,
+                                           "decode_attention_split_cuda"),
         "masked_argmax_packed": Recorder(mask_ops, "masked_argmax_packed"),
         "mamba_scan": Recorder(mamba_ops, "mamba_scan_cuda",
                                max(1, blocks.count("mamba1"))),
@@ -683,7 +917,7 @@ def phase_serve(torch, arch, shared):
     stats = dict(eng.last_batch_stats)
     ticks = stats["n_decode"]
     check_valid(res, f"{arch} bf16 run")
-    check_launches(base, counts, stats, f"{arch} bf16 run")
+    check_launches(cfg16, counts, stats, f"{arch} bf16 run")
     n_tok = sum(r.n_tokens for r in res)
     log(f"[serve] {arch} bf16: {n_tok} tokens in {wall:.3f}s = "
         f"{n_tok / wall:.1f} tok/s; {ticks} decode ticks, "
@@ -694,10 +928,11 @@ def phase_serve(torch, arch, shared):
         + "; ".join(f"{k} {counts[k]}" + (
             f" = {per[0]} a decode forward x {ticks} + {per[1]} an "
             f"admission x {n_pre}" if per else f" ({counts[k] / ticks:.2f} "
-            "a tick)") for k, per in path_kernels(base).items()))
-    if paged or "decode_attention" in path_kernels(base):
-        (q, _, _, ln), kw = recs["decode_attention"].calls[
-            len(recs["decode_attention"].calls) // 2]
+            "a tick)") for k, per in path_kernels(cfg16).items()))
+    attn = [recs[k] for k in ("decode_attention", "decode_attention_split")
+            if k in path_kernels(cfg16)]
+    if attn:
+        (q, *_, ln), kw = attn[0].calls[len(attn[0].calls) // 2]
         lengths, table = (ln - 1).clone(), kw.get("block_tables")
     else:
         # lengths do not change the work of an attention-free forward
@@ -706,12 +941,22 @@ def phase_serve(torch, arch, shared):
              for i in range(N_REQUESTS)], dtype=torch.int32, device="cuda")
         table = None
     _tick_breakdown(torch, eng, arch, res, wall, ticks, phases.seconds,
-                    lengths, table)
+                    lengths, table, layers_mod)
     out = {"counts": counts,
            "calls": {k: r.calls for k, r in recs.items() if r.calls}}
     del eng, res
     torch.cuda.empty_cache()
+    log(f"[serve] {arch} weights freed: {torch.cuda.memory_allocated() / 1e9:.2f}"
+        " GB still allocated")
     return out
+
+
+def _leaves(t):
+    if isinstance(t, dict):
+        return [x for v in t.values() for x in _leaves(v)]
+    if isinstance(t, list):
+        return [x for v in t for x in _leaves(v)]
+    return [t]
 
 
 def _device_ms(torch, fn, n=5):
@@ -751,11 +996,13 @@ def _forward_ms(torch, model, params, cache, feed, n=10):
 
 
 def _tick_breakdown(torch, eng, arch, results, wall, ticks, phases, lengths,
-                    table):
+                    table, layers_mod):
     """Where a bf16 decode tick's time goes: the scheduler's phases on the
     host clock, and the decode forward alone at the main path's mid-run
     lengths (and block table, when paged), through the kernels and through
-    the plain path, on the host clock and on the card."""
+    the plain path, on the host clock and on the card, beside its
+    weight-read bound (for an MoE model twice: every expert read, as the
+    dispatch does, and only the experts the batch routes to)."""
     import dataclasses
 
     from repro_torch.models import build_model
@@ -783,34 +1030,83 @@ def _tick_breakdown(torch, eng, arch, results, wall, ticks, phases, lengths,
         cache["pages"] = table.clone()
     cache["len"] = lengths.to(torch.int32).clone()
     feed = torch.zeros((b, 1), dtype=torch.int64, device="cuda")
-    plain = build_model(dataclasses.replace(eng.model.cfg,
-                                            use_pallas_kernels=False))
-
-    def leaves(t):
-        if isinstance(t, dict):
-            return [x for v in t.values() for x in leaves(v)]
-        if isinstance(t, list):
-            return [x for v in t for x in leaves(v)]
-        return [t]
+    cfg = eng.model.cfg
+    plain = build_model(dataclasses.replace(cfg, use_pallas_kernels=False))
     # a B-row forward reads every weight once (the embedding only B rows)
-    w_bytes = sum(x.numel() * x.element_size() for x in leaves(eng.params))
+    w_bytes = sum(x.numel() * x.element_size() for x in _leaves(eng.params))
     emb = eng.params["embed"]
     w_bytes -= emb[b:].numel() * emb.element_size()
-    bnd, _ = bound_ms(w_bytes, 0, "bfloat16")
+    bounds = [("", w_bytes)]
+    if cfg.moe is not None:
+        # the experts this forward's batch routes to, layer by layer
+        with Recorder(layers_mod, "_top_k") as rec:
+            eng.model.decode_step(eng.params, dict(cache), feed)
+        routed = [int(layers_mod._top_k(*a)[1].unique().numel())
+                  for a, _ in rec.calls]
+        mo = cfg.moe
+        expert = 3 * cfg.d_model * mo.d_ff_expert * \
+            torch.tensor([], dtype=layers_mod.torch_dtype(cfg)).element_size()
+        r_bytes = w_bytes - sum(mo.n_experts - n for n in routed) * expert
+        bounds = [(" all experts", w_bytes),
+                  (f" routed experts only ({routed} a layer)", r_bytes)]
+    bound_txt = ", ".join(
+        f"weight-read bound{name} {bound_ms(n, 0, 'bfloat16')[0]:.3f} ms "
+        f"({n / 1e9:.2f} GB)" for name, n in bounds)
     for name, model in (("kernels", eng.model), ("plain", plain)):
         f_wall, f_dev, top = _forward_ms(torch, model, eng.params, cache,
                                          feed)
         dev = "not measured" if f_dev is None else f"{f_dev:.3f} ms"
         log(f"[serve] {arch} bf16 decode forward ({name}) at B={b} lengths "
             f"{lengths.tolist()}: host wall {f_wall:.2f} ms, device {dev} "
-            f"(profiler), weight-read bound {bnd:.3f} ms "
-            f"({w_bytes / 1e9:.2f} GB)")
+            f"(profiler), {bound_txt}")
         if top:
             log(f"[serve]   top kernels ({name}), ms per forward: "
                 + "; ".join(f"{k[:60]} {t:.3f}" for k, t in top))
 
 
 # -- phase 6 --------------------------------------------------------------------
+
+
+MASK_OP_PATH = "masked_argmax op"
+
+
+def phase_mask_op(torch, path):
+    """The public ``masked_argmax`` op with byte masks -- the entry point of
+    the byte-mask kernel, as the JAX package's mask tests and mask bench
+    call it -- on every tick a serving run selected: that tick's logits
+    and its mask unpacked to one bool a token.  Counters are set to 0 just
+    before the replay and read just after; the results must equal the
+    packed kernel's on the same tick, bit for bit."""
+    from repro_torch.kernels.masked_sample.kernel import masked_argmax_packed
+    from repro_torch.kernels.masked_sample.ops import masked_argmax
+    from repro_torch.kernels.masked_sample.ref import unpack_bits
+    ticks = []
+    for (logits, bits), _ in path["calls"]["masked_argmax_packed"]:
+        mask = unpack_bits(bits, logits.shape[1])
+        ticks.append((logits, mask, masked_argmax_packed(logits, bits)))
+    torch.cuda.synchronize()
+    reset_counts()
+    got = [masked_argmax(logits, mask) for logits, mask, _ in ticks]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if counts["masked_argmax_bytes"] != len(ticks) or \
+            sum(counts.values()) != len(ticks):
+        raise AssertionError(f"masked_argmax op path: launches {counts} for "
+                             f"{len(ticks)} ticks")
+    for (_, _, (i2, v2)), (i1, v1) in zip(ticks, got):
+        if not (torch.equal(i1, i2) and torch.equal(v1, v2)):
+            raise AssertionError("masked_argmax op path: the byte-mask "
+                                 "kernel differs from the packed kernel")
+    b, v = ticks[0][0].shape
+    log(f"[mask op] {len(ticks)} ticks of B={b} V={v} through the op with "
+        f"byte masks: masked_argmax_bytes {counts['masked_argmax_bytes']} "
+        "launches, every result bitwise equal to the packed kernel's")
+    return {"counts": counts,
+            "calls": {"masked_argmax_bytes": [((lg, m), {})
+                                              for lg, m, _ in ticks]}}
+
+
+# -- phase 7 --------------------------------------------------------------------
 
 
 def _mid_decode_call(calls, seq_axis):
@@ -821,14 +1117,15 @@ def _mid_decode_call(calls, seq_axis):
     return pick[len(pick) // 2]
 
 
-def phase_kernels(torch, paths, scans):
+def phase_kernels(torch, paths, scans, split_long, bytes_long):
     """Each kernel on the inputs of a mid-run call of a serving path."""
-    from repro_torch.kernels.decode_attention.kernel import \
-        decode_attention_cuda
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_cuda, decode_attention_split_cuda)
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.kernels.mamba_scan.kernel import mamba_scan_cuda
     from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
-    from repro_torch.kernels.masked_sample.kernel import masked_argmax_packed
+    from repro_torch.kernels.masked_sample.kernel import (masked_argmax_bytes,
+                                                          masked_argmax_packed)
     from repro_torch.kernels.masked_sample.ref import masked_argmax_ref
     from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
@@ -896,6 +1193,66 @@ def phase_kernels(torch, paths, scans):
     entry["contiguous"] = attn_entry("zamba2-1.2b")
     out.append(entry)
 
+    # the split score, at a mid-run decode call of deepseek-v3's bf16 run
+    n, by = launches("decode_attention_split")
+    calls = paths["deepseek-v3-671b"]["calls"]["decode_attention_split"]
+    (q, lat, _, q2, rp, ln), kw = calls[len(calls) // 2]
+    tbl, scale = kw.get("block_tables"), kw["scale"]
+    got = decode_attention_split_cuda(q, lat, lat, q2, rp, ln, scale=scale,
+                                      block_tables=tbl)
+    want = decode_attention_ref(q, lat, lat, ln, scale=scale, q2=q2, k2=rp,
+                                block_tables=tbl)
+    torch.cuda.synchronize()
+    bnd, bnd_by = _split_bound(q, q2, lat, ln, tbl, "bfloat16")
+    k_long, p_long, l_long, b_long = split_long["long"]
+    out.append({
+        "name": "decode_attention_split", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention/kernel.py:121",
+        "launches": n, "launches_by_path": by,
+        "parity": "atol/rtol 2e-2 (bf16)",
+        "max_abs_err": _check_split(torch, got, want, q.dtype,
+                                    "deepseek-v3-671b inputs"),
+        "shape": (f"q {tuple(q.shape)} q2 {tuple(q2.shape)} pools "
+                  f"{tuple(lat.shape)} / {tuple(rp.shape)} lengths "
+                  f"{ln.tolist()} (deepseek-v3-671b, paged)"),
+        "ms": time_ms(torch, lambda: decode_attention_split_cuda(
+            q, lat, lat, q2, rp, ln, scale=scale, block_tables=tbl)),
+        "plain_ms": time_ms(torch, lambda: decode_attention_ref(
+            q, lat, lat, ln, scale=scale, q2=q2, k2=rp, block_tables=tbl)),
+        "bound_ms": bnd, "bound_by": bnd_by,
+        "library_ms": time_ms(torch, _split_sdpa_yardstick(
+            torch, q, q2, lat, rp, ln, tbl, scale)),
+        "long": {"shape": split_long["long_shape"], "ms": k_long,
+                 "plain_ms": p_long, "library_ms": l_long,
+                 "bound_ms": b_long}})
+
+    # the byte mask, at a mid-run tick of the op path's replay
+    n, by = launches("masked_argmax_bytes")
+    calls = paths[MASK_OP_PATH]["calls"]["masked_argmax_bytes"]
+    (logits, mask), _ = calls[len(calls) // 2]
+    i1, v1 = masked_argmax_bytes(logits, mask)
+    i2, v2 = masked_argmax_ref(logits, mask)
+    torch.cuda.synchronize()
+    if not (torch.equal(i1, i2) and torch.equal(v1, v2)):
+        raise AssertionError("byte-mask argmax differs on op-path inputs")
+    b, v = logits.shape
+    bnd, bnd_by = bound_ms(b * v * 5 + b * 8, b * v, "float32")
+    k_long, p_long, b_long = bytes_long["long"]
+    out.append({
+        "name": "masked_argmax_bytes", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/masked_argmax.cu",
+        "replaces": "src/repro/kernels/masked_sample/kernel.py:85",
+        "launches": n, "launches_by_path": by, "parity": "bitwise",
+        "max_abs_err": (v1 - v2).abs().max().item(),
+        "shape": (f"B={b} V={v} row stride {logits.stride(0)}, bool mask "
+                  "(deepseek-v3-671b ticks)"),
+        "ms": time_ms(torch, lambda: masked_argmax_bytes(logits, mask)),
+        "plain_ms": time_ms(torch, lambda: masked_argmax_ref(logits, mask)),
+        "bound_ms": bnd, "bound_by": bnd_by, "library_ms": None,
+        "long": {"shape": bytes_long["long_shape"], "ms": k_long,
+                 "plain_ms": p_long, "bound_ms": b_long}})
+
     for name, arch, fn, ref, bound, shape_of in (
             ("mamba_scan", "falcon-mamba-7b", mamba_scan_cuda,
              mamba_scan_ref, lambda a: _mamba_bound(a[0], a[2].shape[-1]),
@@ -928,9 +1285,11 @@ def phase_kernels(torch, paths, scans):
             "long": {"shape": scans[name]["long_shape"], "ms": long_ms,
                      "plain_ms": long_plain, "bound_ms": long_bound}})
     for k in out:
+        lib = ("" if k["library_ms"] is None
+               else f", library {k['library_ms']:.4f} ms")
         log(f"[kernel] {k['name']}: {k['launches']} launches "
             f"{k['launches_by_path']}, {k['ms']:.4f} ms (plain "
-            f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.6f} ms by "
+            f"{k['plain_ms']:.4f} ms{lib}, bound {k['bound_ms']:.6f} ms by "
             f"{k['bound_by']}) at {k['shape']}")
         if "contiguous" in k:
             c = k["contiguous"]
@@ -977,8 +1336,10 @@ def main() -> int:
 
     try:
         card = timed("env and build", phase_env, torch)
-        timed("masked argmax", phase_masked_argmax, torch)
+        bytes_long = timed("masked argmax", phase_masked_argmax, torch)
         timed("decode attention", phase_decode_attention, torch)
+        split_long = timed("split-score attention", phase_split_attention,
+                           torch)
         scans = timed("scans", phase_scans, torch)
         from repro_torch.core import grammars
         from repro_torch.core.sampling import GrammarSampler
@@ -993,7 +1354,10 @@ def main() -> int:
         paths = {arch: timed(f"serve {arch}", phase_serve, torch, arch,
                              shared)
                  for arch in MODELS}
-        kernels = timed("kernels", phase_kernels, torch, paths, scans)
+        paths[MASK_OP_PATH] = timed("masked_argmax op", phase_mask_op, torch,
+                                    paths["deepseek-v3-671b"])
+        kernels = timed("kernels", phase_kernels, torch, paths, scans,
+                        split_long, bytes_long)
     except Exception as e:  # every phase's failure fails the run
         import traceback
         traceback.print_exc()

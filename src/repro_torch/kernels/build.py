@@ -102,6 +102,13 @@ def library() -> ctypes.CDLL:
             _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
             ctypes.c_float, _P]
         lib.repro_decode_attention.restype = _I
+        lib.repro_decode_attention_split.argtypes = [
+            _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+            ctypes.c_float, _P]
+        lib.repro_decode_attention_split.restype = _I
+        lib.repro_masked_argmax_bytes.argtypes = [
+            _P, ctypes.c_longlong, _P, ctypes.c_longlong, _I, _I, _P, _P, _P]
+        lib.repro_masked_argmax_bytes.restype = _I
         lib.repro_mamba_scan.argtypes = [_P] * 8 + [_I] * 4 + [_P]
         lib.repro_mamba_scan.restype = _I
         lib.repro_ssd_scan.argtypes = [_P] * 8 + [_I] * 5 + [_P]

@@ -1,11 +1,12 @@
-// Ragged, paged GQA decode attention with an online softmax (Hopper, sm_90a).
+// Ragged, paged decode attention with an online softmax (Hopper, sm_90a).
 //
 // Replaces: src/repro/kernels/decode_attention/kernel.py
-//   decode_attention_pallas -> _kernel (the TPU kernel), without its split
-//   score operand (q2, k2), which only absorbed MLA uses.
+//   decode_attention_pallas -> _kernel (the TPU kernel), in two entry points:
+//   repro_decode_attention for the plain score (GQA), and
+//   repro_decode_attention_split for the split score (q2, k2) of absorbed MLA.
 //
-// Computes, for row b, KV group g and query row r = s * Qh + qh of the
-// window (s < S, qh < Qh):
+// Plain score.  Computes, for row b, KV group g and query row r = s * Qh + qh
+// of the window (s < S, qh < Qh):
 //   out[b, s, g, qh] = softmax_t(q . k_t * scale) @ v   over keys t < lengths[b] + s
 // Rows that see no key give exactly 0.  Paged mode reads key t of row b from
 // pool page max(block_tables[b, t / ps], 0) at offset t % ps; contiguous
@@ -29,6 +30,37 @@
 // loads its own block-table entries; entries <= 0 go to the trash page 0.
 // Keys past the table's width are never visited (the frontier is capped at
 // n_tiles * page_size), matching the TPU kernel's grid.
+//
+// Split score (absorbed MLA).  The latent cache is both key and value:
+//   out[b, s, g, qh] = softmax_t((q . k_t + q2 . k2_t) * scale) @ k_t
+// with q (B, S, G, Qh, R), k the latent (R = kv_lora_rank, 512 at
+// deepseek-v3), q2/k2 the rope term (D2 = 64) and the same frontier, paging,
+// trash-page and empty-row rules as above.  At deepseek-v3's width one group
+// holds S * 128 query rows of 512 latent values: their accumulators alone
+// (128 x 512 float32 = 256 KB) exceed a block's shared memory, so the plain
+// kernel's "all rows of a group in one block" cannot hold them.
+//
+// What bounds it: operations, on the CUDA cores.  Every key is scored
+// against every query head (R + D2 products) and accumulated into it (R
+// products): at 128 heads that is ~240 flops a key byte in bf16 -- close to
+// the card's bf16 tensor-core balance (~295 flops a byte), twelve times its
+// float32 CUDA-core balance (~20).  At B = 4 and 1000 keys a row: ~1.1 GFLOP
+// for ~4.6 MB.  This simple kernel runs on the CUDA cores; wgmma is the
+// lever for a later change.
+//
+// Design: grid (b * G + g, tile of 8 query rows); one warp a query row, so
+// each warp keeps one online softmax for the whole sequence and no merge is
+// needed.  A lane owns a fixed slice of the latent dims (16-byte vectors
+// (i * 32 + lane), so a warp reads a key's latent as one contiguous sweep)
+// and of the rope dims (i * 32 + lane): it keeps its slice of q, q2 and of
+// the R-wide accumulator in registers.  The block stages a chunk of 32 keys'
+// latent and rope rows in shared memory once for its 8 rows (zeros past the
+// frontier, so nothing beyond it is read), each warp forms the lane's
+// partial dot products for all 32 keys, and a butterfly reduce-scatter
+// (31 shuffles) leaves the full score of key j in lane j -- the lane-per-key
+// layout the online softmax wants.  The values are the staged latent rows
+// themselves: they are read from shared memory a second time, never from
+// device memory.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -276,6 +308,253 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* lengt
   return cudaErrorInvalidValue;
 }
 
+// -- split score (absorbed MLA) ---------------------------------------------------
+
+constexpr int kSplitWarps = 8;               // query rows a block, one a warp
+constexpr int kSplitThreads = kSplitWarps * 32;
+constexpr int kChunk = 32;                   // keys staged a step, one a lane
+
+// One butterfly step of the reduce-scatter: lanes with bit OFF set keep the
+// upper half of their OFF-wide window, the others the lower half, and each
+// adds its partner's copy of the half it keeps.
+template <int OFF>
+__device__ __forceinline__ void reduce_scatter_step(float (&v)[kChunk], int lane) {
+  const bool upper = (lane & OFF) != 0;
+#pragma unroll
+  for (int i = 0; i < OFF; ++i) {
+    const float send = upper ? v[i] : v[i + OFF];
+    const float keep = upper ? v[i + OFF] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, OFF);
+  }
+}
+
+// Returns, in lane j, the sum over the warp's lanes of their v[j].
+__device__ __forceinline__ float reduce_scatter(float (&v)[kChunk], int lane) {
+  reduce_scatter_step<16>(v, lane);
+  reduce_scatter_step<8>(v, lane);
+  reduce_scatter_step<4>(v, lane);
+  reduce_scatter_step<2>(v, lane);
+  reduce_scatter_step<1>(v, lane);
+  return v[0];
+}
+
+// NV: 16-byte latent vectors a lane owns (R <= 32 * NV * kVec); NV2: rope
+// dims a lane owns (D2 <= 32 * NV2).
+template <typename T, int NV, int NV2>
+__global__ void __launch_bounds__(kSplitThreads)
+    decode_attention_split_kernel(const T* __restrict__ q, const T* __restrict__ q2,
+                                  const T* __restrict__ k, const T* __restrict__ k2,
+                                  const int* __restrict__ lengths,
+                                  const int* __restrict__ tables, T* __restrict__ out, int S,
+                                  int G, int Qh, int R, int D2, int page_size, int n_tiles,
+                                  float scale) {
+  constexpr int kVec = Elem<T>::kVec;
+  extern __shared__ __align__(16) unsigned char split_smem[];
+  long long* row_s = reinterpret_cast<long long*>(split_smem);    // (kChunk,) pool rows
+  T* lat_s = reinterpret_cast<T*>(row_s + kChunk);                // (kChunk, R)
+  T* rope_s = lat_s + kChunk * R;                                 // (kChunk, D2)
+
+  const int b = blockIdx.x / G;
+  const int g = blockIdx.x % G;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int r = blockIdx.y * kSplitWarps + warp;  // query row s * Qh + qh
+  const bool active = r < S * Qh;
+  const int s = active ? r / Qh : 0;
+  const int qh = active ? r % Qh : 0;
+  const int r_vecs = R / kVec;                    // latent vectors a key
+  const int d2_vecs = D2 / kVec;                  // rope vectors a key
+
+  // this lane's slices of the query row, in float32
+  const long long qrow = (((long long)b * S + s) * G + g) * Qh + qh;
+  float qv[NV][kVec], q2v[NV2];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int vi = i * 32 + lane;
+    if (active && vi < r_vecs) {
+      Elem<T>::load_vec(q + qrow * R + vi * kVec, qv[i]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) qv[i][j] = 0.f;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < NV2; ++i) {
+    const int d = i * 32 + lane;
+    q2v[i] = (active && d < D2) ? Elem<T>::to_float(q2[qrow * D2 + d]) : 0.f;
+  }
+
+  const int base = lengths[b];                 // keys visible to window position 0
+  long long frontier = (long long)base + S - 1;
+  const long long cap = (long long)n_tiles * page_size;
+  if (frontier > cap) frontier = cap;
+  const int n_keys = frontier > 0 ? static_cast<int>(frontier) : 0;
+  const int row_keys = base + s;               // keys this query row sees
+  const int* tbl = tables == nullptr ? nullptr : tables + (long long)b * n_tiles;
+
+  float m = kNeg, l = 0.f, acc[NV][kVec];
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) acc[i][j] = 0.f;
+
+  for (int c0 = 0; c0 < n_keys; c0 += kChunk) {
+    // pool rows of the chunk's keys; -1 past the frontier
+    if (threadIdx.x < kChunk) {
+      const int t = c0 + threadIdx.x;
+      long long row = -1;
+      if (t < n_keys) {
+        int page;
+        if (tbl != nullptr) {
+          page = tbl[t / page_size];
+          page = page > 0 ? page : 0;
+        } else {
+          page = b;
+        }
+        row = ((long long)page * page_size + t % page_size) * G + g;
+      }
+      row_s[threadIdx.x] = row;
+    }
+    __syncthreads();
+    // stage the chunk's latent and rope rows, zeros past the frontier
+    for (int e = threadIdx.x; e < kChunk * (r_vecs + d2_vecs); e += kSplitThreads) {
+      const bool lat = e < kChunk * r_vecs;
+      const int e2 = lat ? e : e - kChunk * r_vecs;
+      const int per = lat ? r_vecs : d2_vecs;
+      const int j = e2 / per, c = e2 % per;
+      const long long row = row_s[j];
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (row >= 0) {
+        const T* src = lat ? k + row * R : k2 + row * D2;
+        val = *reinterpret_cast<const uint4*>(src + c * kVec);
+      }
+      T* dst = lat ? lat_s + j * R : rope_s + j * D2;
+      *reinterpret_cast<uint4*>(dst + c * kVec) = val;
+    }
+    __syncthreads();
+    if (active) {
+      // the lane's partial scores of all the chunk's keys, then the full
+      // score of key c0 + lane
+      float part[kChunk];
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) {
+        float sum = 0.f;
+#pragma unroll
+        for (int i = 0; i < NV; ++i) {
+          const int vi = i * 32 + lane;
+          if (vi < r_vecs) {
+            float kf[kVec];
+            Elem<T>::load_vec(lat_s + j * R + vi * kVec, kf);
+#pragma unroll
+            for (int x = 0; x < kVec; ++x) sum += qv[i][x] * kf[x];
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < NV2; ++i) {
+          const int d = i * 32 + lane;
+          if (d < D2) sum += q2v[i] * Elem<T>::to_float(rope_s[j * D2 + d]);
+        }
+        part[j] = sum;
+      }
+      const float score = reduce_scatter(part, lane);
+      const int t = c0 + lane;
+      const bool valid = t < n_keys && t < row_keys;
+      const float s_val = valid ? score * scale : kNeg;
+      const float m_new = fmaxf(m, warp_max(s_val));
+      // explicit re-mask, as in the plain kernel: dead keys add nothing to l
+      const float p = valid ? expf(s_val - m_new) : 0.f;
+      const float corr = expf(m - m_new);
+      l = l * corr + warp_sum(p);
+#pragma unroll
+      for (int i = 0; i < NV; ++i)
+#pragma unroll
+        for (int x = 0; x < kVec; ++x) acc[i][x] *= corr;
+      m = m_new;
+      // acc += p @ latent over the chunk's keys
+      const int n_in = min(kChunk, n_keys - c0);
+      for (int j = 0; j < n_in; ++j) {
+        const float pj = __shfl_sync(0xffffffffu, p, j);
+#pragma unroll
+        for (int i = 0; i < NV; ++i) {
+          const int vi = i * 32 + lane;
+          if (vi < r_vecs) {
+            float vf[kVec];
+            Elem<T>::load_vec(lat_s + j * R + vi * kVec, vf);
+#pragma unroll
+            for (int x = 0; x < kVec; ++x) acc[i][x] += pj * vf[x];
+          }
+        }
+      }
+    }
+    __syncthreads();  // the next chunk overwrites the staged rows
+  }
+
+  if (!active) return;
+  const float den = fmaxf(l, 1e-30f);
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int vi = i * 32 + lane;
+    if (vi < r_vecs) {
+#pragma unroll
+      for (int x = 0; x < kVec; ++x)
+        out[qrow * R + vi * kVec + x] = Elem<T>::from_float(acc[i][x] / den);
+    }
+  }
+}
+
+template <typename T, int NV, int NV2>
+cudaError_t launch_split_nv(const void* q, const void* q2, const void* k, const void* k2,
+                            const int* lengths, const int* tables, void* out, int B, int S,
+                            int G, int Qh, int R, int D2, int page_size, int n_tiles,
+                            float scale, cudaStream_t stream) {
+  const size_t smem = kChunk * sizeof(long long) + (size_t)kChunk * (R + D2) * sizeof(T);
+  auto kern = decode_attention_split_kernel<T, NV, NV2>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid(B * G, (S * Qh + kSplitWarps - 1) / kSplitWarps);
+  kern<<<grid, kSplitThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(q2), static_cast<const T*>(k),
+      static_cast<const T*>(k2), lengths, tables, static_cast<T*>(out), S, G, Qh, R, D2,
+      page_size, n_tiles, scale);
+  return cudaGetLastError();
+}
+
+template <typename T, int NV>
+cudaError_t launch_split_nv2(const void* q, const void* q2, const void* k, const void* k2,
+                             const int* lengths, const int* tables, void* out, int B, int S,
+                             int G, int Qh, int R, int D2, int page_size, int n_tiles,
+                             float scale, cudaStream_t stream) {
+  if (D2 <= 32)
+    return launch_split_nv<T, NV, 1>(q, q2, k, k2, lengths, tables, out, B, S, G, Qh, R, D2,
+                                     page_size, n_tiles, scale, stream);
+  if (D2 <= 64)
+    return launch_split_nv<T, NV, 2>(q, q2, k, k2, lengths, tables, out, B, S, G, Qh, R, D2,
+                                     page_size, n_tiles, scale, stream);
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t launch_split(const void* q, const void* q2, const void* k, const void* k2,
+                         const int* lengths, const int* tables, void* out, int B, int S, int G,
+                         int Qh, int R, int D2, int page_size, int n_tiles, float scale,
+                         cudaStream_t stream) {
+  if (R % 8 != 0 || D2 % 8 != 0 || R <= 0 || D2 <= 0) return cudaErrorInvalidValue;
+  const int nv = (R / Elem<T>::kVec + 31) / 32;  // latent vectors a lane
+  if (nv <= 1)
+    return launch_split_nv2<T, 1>(q, q2, k, k2, lengths, tables, out, B, S, G, Qh, R, D2,
+                                  page_size, n_tiles, scale, stream);
+  if (nv <= 2)
+    return launch_split_nv2<T, 2>(q, q2, k, k2, lengths, tables, out, B, S, G, Qh, R, D2,
+                                  page_size, n_tiles, scale, stream);
+  if (nv <= 4)
+    return launch_split_nv2<T, 4>(q, q2, k, k2, lengths, tables, out, B, S, G, Qh, R, D2,
+                                  page_size, n_tiles, scale, stream);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it).
@@ -298,6 +577,35 @@ extern "C" int repro_decode_attention(int dtype, const void* q, const void* k, c
   } else if (dtype == 1) {
     err = launch<__nv_bfloat16>(q, k, v, len, tbl, out, B, S, G, Qh, Dk, Dv, page_size, n_tiles,
                                 scale, st);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// Split score of absorbed MLA; dtype as above, shared by q, q2, k, k2 and out.
+// q (B, S, G, Qh, R), q2 (B, S, G, Qh, D2) and out (B, S, G, Qh, R)
+// contiguous; lengths (B,) int32.  Paged: k (n_pages, page_size, G, R) -- the
+// latent, read as both key and value -- and k2 (n_pages, page_size, G, D2),
+// tables (B, n_tiles) int32.  Contiguous: tables == NULL, k (B, T, G, R), k2
+// (B, T, G, D2) with page_size = T and n_tiles = 1.  R and D2 are multiples
+// of 8, R <= 512, D2 <= 64.  Returns the launch's cudaGetLastError() code.
+extern "C" int repro_decode_attention_split(int dtype, const void* q, const void* q2,
+                                            const void* k, const void* k2, const void* lengths,
+                                            const void* tables, void* out, int B, int S, int G,
+                                            int Qh, int R, int D2, int page_size, int n_tiles,
+                                            float scale, void* stream) {
+  if (B <= 0 || G <= 0 || S <= 0 || Qh <= 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* len = static_cast<const int*>(lengths);
+  const int* tbl = static_cast<const int*>(tables);
+  cudaError_t err;
+  if (dtype == 0) {
+    err = launch_split<float>(q, q2, k, k2, len, tbl, out, B, S, G, Qh, R, D2, page_size,
+                              n_tiles, scale, st);
+  } else if (dtype == 1) {
+    err = launch_split<__nv_bfloat16>(q, q2, k, k2, len, tbl, out, B, S, G, Qh, R, D2,
+                                      page_size, n_tiles, scale, st);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -1,6 +1,8 @@
-"""Launch wrapper of the decode-attention CUDA kernel
+"""Launch wrappers of the decode-attention CUDA kernels
 (``kernels/csrc/decode_attention.cu``), the port of the TPU kernel
-``repro.kernels.decode_attention.kernel.decode_attention_pallas``."""
+``repro.kernels.decode_attention.kernel.decode_attention_pallas``: the
+plain score (``decode_attention_cuda``) and the split score of absorbed
+MLA (``decode_attention_split_cuda``)."""
 from __future__ import annotations
 
 import math
@@ -13,6 +15,40 @@ from repro_torch.kernels.decode_attention.ref import lengths_vector
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_ROWS = 16       # S * Qh query rows one block holds
 MAX_HEAD_DIM = 128
+MAX_LATENT = 512    # split score: latent width (Dk = Dv) a warp holds
+MAX_SPLIT_DIM = 64  # split score: width of the second (rope) term
+
+
+def _check_operands(name, q, *kv):
+    """Same CUDA device and dtype (float32 or bfloat16), contiguous,
+    16-byte aligned."""
+    dev = q.device
+    if dev.type != "cuda" or any(x.device != dev for x in kv):
+        raise ValueError(f"{name}: operands must be on one CUDA device, got "
+                         + "/".join(str(x.device) for x in (q,) + kv))
+    if q.dtype not in _DTYPES or any(x.dtype != q.dtype for x in kv):
+        raise ValueError(f"{name}: operands must share float32 or bfloat16, "
+                         "got " + "/".join(str(x.dtype) for x in (q,) + kv))
+    for x in (q,) + kv:
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"{name}: operands must be contiguous and "
+                             "16-byte aligned")
+
+
+def _table(name, block_tables, k, b):
+    """(page size, table width, table or None): contiguous rows read as one
+    page of T keys a row."""
+    if block_tables is None:
+        if k.shape[0] != b:
+            raise ValueError(f"{name}: contiguous k/v need one row per batch "
+                             "row")
+        return k.shape[1], 1, None
+    if block_tables.device != k.device or block_tables.dtype != torch.int32 \
+            or block_tables.dim() != 2 or block_tables.shape[0] != b \
+            or not block_tables.is_contiguous():
+        raise ValueError(f"{name}: block_tables must be a contiguous "
+                         "(B, max_pages) int32 tensor on the card")
+    return k.shape[1], block_tables.shape[1], block_tables
 
 
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -21,20 +57,10 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B,S,G,Qh,Dk); k (B,T,G,Dk) / v (B,T,G,Dv), or with
     ``block_tables`` (B, max_pages) int32 pools (n_pages, ps, G, D);
     lengths () or (B,) -> (B,S,G,Qh,Dv) in q's dtype, on the card."""
-    dev = q.device
-    if dev.type != "cuda" or k.device != dev or v.device != dev:
-        raise ValueError("decode_attention_cuda: q, k, v must be on one CUDA "
-                         f"device, got {q.device}/{k.device}/{v.device}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError("decode_attention_cuda: q, k, v must share float32 "
-                         f"or bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
+    _check_operands("decode_attention_cuda", q, k, v)
     if q.dim() != 5 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("decode_attention_cuda: q (B,S,G,Qh,D) and k/v "
                          "(rows, T, G, D) expected")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if not x.is_contiguous() or x.data_ptr() % 16:
-            raise ValueError(f"decode_attention_cuda: {name} must be "
-                             "contiguous and 16-byte aligned")
     b, s_win, g, qh, dk = q.shape
     dv = v.shape[-1]
     if k.shape[2] != g or v.shape[2] != g or k.shape[:2] != v.shape[:2] \
@@ -47,22 +73,11 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"decode_attention_cuda: needs Dk % 8 == 0, Dk, Dv <= "
             f"{MAX_HEAD_DIM} and S*Qh <= {MAX_ROWS}; got Dk={dk} Dv={dv} "
             f"S*Qh={s_win * qh}")
-    if block_tables is None:
-        if k.shape[0] != b:
-            raise ValueError("decode_attention_cuda: contiguous k/v need one "
-                             "row per batch row")
-        page_size, n_tiles, tbl = k.shape[1], 1, None
-    else:
-        if block_tables.device != dev or block_tables.dtype != torch.int32 \
-                or block_tables.dim() != 2 or block_tables.shape[0] != b \
-                or not block_tables.is_contiguous():
-            raise ValueError("decode_attention_cuda: block_tables must be a "
-                             "contiguous (B, max_pages) int32 tensor on the "
-                             "card")
-        page_size, n_tiles, tbl = k.shape[1], block_tables.shape[1], \
-            block_tables
+    page_size, n_tiles, tbl = _table("decode_attention_cuda", block_tables,
+                                     k, b)
     if scale is None:
         scale = 1.0 / math.sqrt(dk)
+    dev = q.device
     ln = lengths_vector(lengths, b, dev)
     out = torch.empty((b, s_win, g, qh, dv), dtype=q.dtype, device=dev)
     lib = build.library()
@@ -77,3 +92,54 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 decode_attention_cuda.launches = 0
+
+
+def decode_attention_split_cuda(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, q2: torch.Tensor,
+                                k2: torch.Tensor, lengths, scale=None,
+                                block_tables=None) -> torch.Tensor:
+    """Split-score decode attention of absorbed MLA: score =
+    (q.k^T + q2.k2^T) * scale, values = k.
+
+    q (B,S,G,Qh,R); q2 (B,S,G,Qh,D2); k (B,T,G,R) and k2 (B,T,G,D2), or
+    with ``block_tables`` (B, max_pages) int32 pools (n_pages, ps, G, R)
+    and (n_pages, ps, G, D2); ``v`` must be ``k`` (the latent is both key
+    and value); lengths () or (B,) -> (B,S,G,Qh,R) in q's dtype."""
+    name = "decode_attention_split_cuda"
+    _check_operands(name, q, k, q2, k2)
+    if q.dim() != 5 or q2.dim() != 5 or k.dim() != 4 or k2.dim() != 4:
+        raise ValueError(f"{name}: q/q2 (B,S,G,Qh,D) and k/k2 (rows, T, G, "
+                         "D) expected")
+    if v.data_ptr() != k.data_ptr() or v.shape != k.shape \
+            or v.stride() != k.stride() or v.dtype != k.dtype:
+        raise ValueError(f"{name}: the values must be the keys' own tensor "
+                         "(absorbed MLA's latent)")
+    b, s_win, g, qh, r = q.shape
+    d2 = q2.shape[-1]
+    if q2.shape[:4] != q.shape[:4] or k.shape[2] != g or k.shape[3] != r \
+            or k2.shape[:3] != k.shape[:3] or k2.shape[3] != d2:
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)} q2 "
+                         f"{tuple(q2.shape)} k {tuple(k.shape)} k2 "
+                         f"{tuple(k2.shape)} disagree")
+    if r % 8 or d2 % 8 or r > MAX_LATENT or d2 > MAX_SPLIT_DIM:
+        raise ValueError(f"{name}: needs R % 8 == 0, D2 % 8 == 0, R <= "
+                         f"{MAX_LATENT}, D2 <= {MAX_SPLIT_DIM}; got R={r} "
+                         f"D2={d2}")
+    page_size, n_tiles, tbl = _table(name, block_tables, k, b)
+    if scale is None:
+        scale = 1.0 / math.sqrt(r)
+    dev = q.device
+    ln = lengths_vector(lengths, b, dev)
+    out = torch.empty((b, s_win, g, qh, r), dtype=q.dtype, device=dev)
+    lib = build.library()
+    rc = lib.repro_decode_attention_split(
+        _DTYPES[q.dtype], q.data_ptr(), q2.data_ptr(), k.data_ptr(),
+        k2.data_ptr(), ln.data_ptr(), None if tbl is None else tbl.data_ptr(),
+        out.data_ptr(), b, s_win, g, qh, r, d2, page_size, n_tiles,
+        float(scale), torch.cuda.current_stream(dev).cuda_stream)
+    build.check(rc, "decode_attention_split")
+    decode_attention_split_cuda.launches += 1
+    return out
+
+
+decode_attention_split_cuda.launches = 0

@@ -1,6 +1,8 @@
-"""Launch wrapper of the packed masked-argmax CUDA kernel
-(``kernels/csrc/masked_argmax.cu``), the port of the TPU kernel
-``repro.kernels.masked_sample.kernel.masked_argmax_pallas_packed``."""
+"""Launch wrappers of the masked-argmax CUDA kernels
+(``kernels/csrc/masked_argmax.cu``), the ports of the TPU kernels
+``repro.kernels.masked_sample.kernel.masked_argmax_pallas_packed`` (packed
+mask words, ``masked_argmax_packed``) and ``masked_argmax_pallas`` (one
+mask byte a token, ``masked_argmax_bytes``)."""
 from __future__ import annotations
 
 import torch
@@ -44,3 +46,42 @@ def masked_argmax_packed(logits: torch.Tensor, bits: torch.Tensor):
 
 
 masked_argmax_packed.launches = 0
+
+
+MASK_BYTE_DTYPES = (torch.bool, torch.int8, torch.uint8)
+
+
+def masked_argmax_bytes(logits: torch.Tensor, mask: torch.Tensor):
+    """logits (B, V) float32 on the card, unit column stride (the row stride
+    may be wider than V); mask (B, V) bool/int8/uint8 with unit column
+    stride, nonzero = legal -> (idx (B,) int32, val (B,) float32)."""
+    if logits.device.type != "cuda" or mask.device != logits.device:
+        raise ValueError("masked_argmax_bytes: logits and mask must be on "
+                         f"one CUDA device, got {logits.device}/{mask.device}")
+    if logits.dtype != torch.float32 or logits.dim() != 2 \
+            or logits.stride(1) != 1:
+        raise ValueError("masked_argmax_bytes: logits must be (B, V) "
+                         "float32 with unit column stride, got "
+                         f"{tuple(logits.shape)} {logits.dtype} "
+                         f"strides {logits.stride()}")
+    b, v = logits.shape
+    if mask.dtype not in MASK_BYTE_DTYPES or tuple(mask.shape) != (b, v) \
+            or mask.stride(1) != 1:
+        raise ValueError(f"masked_argmax_bytes: mask must be ({b}, {v}) "
+                         "bool/int8/uint8 with unit column stride, got "
+                         f"{tuple(mask.shape)} {mask.dtype}")
+    idx = torch.empty((b,), dtype=torch.int32, device=logits.device)
+    val = torch.empty((b,), dtype=torch.float32, device=logits.device)
+    if b == 0:
+        return idx, val
+    lib = build.library()
+    stream = torch.cuda.current_stream(logits.device).cuda_stream
+    rc = lib.repro_masked_argmax_bytes(
+        logits.data_ptr(), logits.stride(0), mask.data_ptr(), mask.stride(0),
+        b, v, idx.data_ptr(), val.data_ptr(), stream)
+    build.check(rc, "masked_argmax_bytes")
+    masked_argmax_bytes.launches += 1
+    return idx, val
+
+
+masked_argmax_bytes.launches = 0

@@ -12,8 +12,13 @@ config of ``--arch``; ``--no-smoke`` serves its published width:
 ``--arch falcon-mamba-7b`` (Mamba1) and ``--arch zamba2-1.2b`` (Mamba2 with
 a shared attention block) serve their recurrent state on the dense layout;
 ``--kernels`` then also routes their scans through the hand-written
-kernels.  The scheduler pages the KV cache only where every block is full
-attention, and the header line says which layout it chose.
+kernels.  ``--arch deepseek-v3-671b`` (MLA + MoE) pages its latent cache,
+and ``--kernels`` routes its decode read through the split-score kernel;
+its published config (61 layers, 704 B parameters) does not fit one card,
+so on the card it serves at ``--smoke`` size here, and ``chip_smoke.py``
+serves it at full width with its depth cut.  The scheduler pages the
+cache only where every block is attention (GQA or MLA), and the header
+line says which layout it chose.
 """
 import argparse
 
@@ -39,8 +44,9 @@ def parse_args(argv=None):
     ap.add_argument("--slots", type=int, default=4,
                     help="continuous-batching decode slots")
     ap.add_argument("--kernels", action="store_true",
-                    help="route decode attention and the SSM scans "
-                         "through the hand-written CUDA kernels")
+                    help="route decode attention (GQA and MLA's split "
+                         "score) and the SSM scans through the "
+                         "hand-written CUDA kernels")
     ap.add_argument("--page-size", type=int, default=64,
                     help="paged-KV pool page length in tokens")
     ap.add_argument("--pool-pages", type=int, default=None,

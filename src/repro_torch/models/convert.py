@@ -6,8 +6,9 @@ block's weights live once at ``stack["shared_attn"]`` (its group slot is
 empty).  Leaves arrive as numpy arrays (a caller converts them with
 ``np.asarray``; bf16 leaves cross as float32, which holds every bf16 value
 exactly) and are cast to the config's dtype on ``device``, except the
-SSM leaves the JAX package keeps in float32 whatever the config's dtype
-(``F32_LEAVES``), which stay float32.  This module imports no JAX.
+leaves the JAX package keeps in float32 whatever the config's dtype
+(``F32_LEAVES``: the SSM parameters and the MoE router), which stay
+float32.  This module imports no JAX.
 """
 from __future__ import annotations
 
@@ -19,8 +20,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import torch_dtype
 
-# SSM parameters kept in float32 in every config (``repro.models.ssm``)
-F32_LEAVES = ("A_log", "D", "dt_bias")
+# parameters kept in float32 in every config: the SSM's
+# (``repro.models.ssm``) and the MoE router (``repro.models.layers``)
+F32_LEAVES = ("A_log", "D", "dt_bias", "router")
 
 
 def _leaves(tree, fn, name=""):

@@ -1,13 +1,16 @@
 """Decode caches of the port: dense per-row stripes or a paged pool with
 per-slot block tables (``repro.models.kvcache``'s layout).
 
-Dense: ``attn``/``shared_attn`` k/v (B, T_max, n_kv, d_head); validity =
-pos < len.  SSM blocks (``mamba1``/``mamba2``) keep O(1) state a row and
+Dense: ``attn``/``shared_attn`` k/v (B, T_max, n_kv, d_head); ``mla`` the
+latent ``ckv`` (B, T_max, kv_lora_rank) and the rope key ``krope``
+(B, T_max, 1, qk_rope_head_dim); ``moe`` whichever its attention is (MLA if
+``cfg.mla`` else k/v); validity = pos < len.  SSM blocks (``mamba1``/``mamba2``) keep O(1) state a row and
 stay dense: ``conv`` (B, d_conv-1, C) in the config's dtype (the last
 inputs of the causal conv) and ``ssm`` in float32, (B, d_inner, N) for
 Mamba1 and (B, n_heads, head_dim, N) for Mamba2.
 Paged (``init_cache(..., page_size=ps)``): k/v are a POOL
-(n_pages, ps, n_kv, d_head) shared by all slots plus ``cache["pages"]``, a
+(n_pages, ps, n_kv, d_head) -- MLA's ckv/krope likewise (n_pages, ps, ...)
+-- shared by all slots plus ``cache["pages"]``, a
 (B, max_pages) int32 block table (max_pages = T_max / ps): logical position
 p of row b lives at pool row ``pages[b, p // ps]``, offset ``p % ps``.  Page
 0 is the trash page: unallocated table entries point at it, so writes from
@@ -32,7 +35,7 @@ from repro_torch.models.layers import torch_dtype
 # block kinds whose cache can take the paged pool layout
 PAGEABLE_KINDS = ("attn", "shared_attn", "mla", "moe")
 # block kinds this port runs so far
-PORTED_KINDS = ("attn", "shared_attn", "mamba1", "mamba2")
+PORTED_KINDS = ("attn", "shared_attn", "mla", "moe", "mamba1", "mamba2")
 
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -77,6 +80,12 @@ def _block_cache(cfg: ModelConfig, kind: str, lead, t: int, dtype,
                                     dtype=dtype, device=device),
                 "ssm": torch.zeros(tuple(lead) + state, dtype=torch.float32,
                                    device=device)}
+    if kind == "mla" or (kind == "moe" and cfg.mla is not None):
+        m = cfg.mla
+        return {"ckv": torch.zeros(tuple(lead) + (t, m.kv_lora_rank),
+                                   dtype=dtype, device=device),
+                "krope": torch.zeros(tuple(lead) + (t, 1, m.qk_rope_head_dim),
+                                     dtype=dtype, device=device)}
     shape = tuple(lead) + (t, cfg.n_kv_heads, cfg.d_head)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}

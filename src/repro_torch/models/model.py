@@ -7,8 +7,8 @@
   rollback(cache, n_tokens)          -> cache
 
 mirroring ``repro.models.model`` for the block kinds ported so far
-(``kvcache.PORTED_KINDS``: dense attention, zamba2's shared attention and
-the Mamba1/Mamba2 SSM blocks).  Params are nested dicts of tensors; caches
+(``kvcache.PORTED_KINDS``: dense attention, zamba2's shared attention, MLA,
+MoE and the Mamba1/Mamba2 SSM blocks).  Params are nested dicts of tensors; caches
 are updated in place and returned.
 ``tokens`` in decode_step may carry S_new > 1 (one forward scores a
 speculative chain).  Training (``loss``/``train_logits``) is not ported yet.

@@ -9,6 +9,8 @@ Block kinds ported so far:
   shared_attn   zamba2's shared-weight attention block: the ``attn`` math on
                 ONE set of weights (``params["shared_attn"]``) for every
                 invocation, each with its own K/V cache
+  mla           DeepSeek multi-head latent attention block (MLA + dense MLP)
+  moe           MoE-FFN block (attention = MLA if ``cfg.mla`` else GQA)
   mamba1        Mamba1 (selective scan) block, pre-norm and residual
   mamba2        Mamba2 (SSD) block, pre-norm and residual
 """
@@ -26,7 +28,9 @@ from repro_torch.models import ssm
 from repro_torch.models.flash import attention_any
 from repro_torch.models.kvcache import check_ported
 from repro_torch.models.layers import (_split_heads, attention_init,
-                                       mlp_apply, mlp_init, rmsnorm,
+                                       mla_apply, mla_apply_absorbed,
+                                       mla_compress, mla_init, mlp_apply,
+                                       mlp_init, moe_apply, moe_init, rmsnorm,
                                        rmsnorm_init, rope, torch_dtype)
 
 Params = Dict[str, Any]
@@ -69,6 +73,22 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
             "norm2": rmsnorm_init(d, dt, device),
             "mlp": mlp_init(gen, d, cfg.d_ff, dt, device),
         }
+    if kind == "mla":
+        return {
+            "norm1": rmsnorm_init(d, dt, device),
+            "mla": mla_init(gen, cfg, device),
+            "norm2": rmsnorm_init(d, dt, device),
+            "mlp": mlp_init(gen, d, cfg.d_ff, dt, device),
+        }
+    if kind == "moe":
+        p: Params = {"norm1": rmsnorm_init(d, dt, device),
+                     "norm2": rmsnorm_init(d, dt, device),
+                     "moe": moe_init(gen, cfg, device)}
+        if cfg.mla is not None:
+            p["mla"] = mla_init(gen, cfg, device)
+        else:
+            p["attn"] = attention_init(gen, cfg, device)
+        return p
     if kind == "mamba1":
         return {"norm": rmsnorm_init(d, dt, device),
                 "mamba": ssm.mamba1_init(gen, cfg, device)}
@@ -116,9 +136,9 @@ def _self_attention(p: Params, cfg: ModelConfig, xn: torch.Tensor, ctx: Ctx,
     if cache is None or ctx.mode == "prefill":
         out = attention_any(qg, k_new, v_new, ctx.q_pos, ctx.q_pos)
         if cache is not None:
-            _write_kv(cache, k_new, v_new, ctx)
+            _write_kv(cache, ctx, k=k_new, v=v_new)
     else:  # decode
-        _write_kv(cache, k_new, v_new, ctx)
+        _write_kv(cache, ctx, k=k_new, v=v_new)
         k_all, v_all = cache["k"], cache["v"]
         if cfg.use_pallas_kernels:
             # hand-written ragged decode kernel: q (B,S,G,Qh,D) against the
@@ -157,39 +177,72 @@ def _page_translate(ctx: Ctx, b: int, s: int, page_size: int):
     return prow, pos % page_size
 
 
-def _write_kv(cache: Params, k: torch.Tensor, v: torch.Tensor,
-              ctx: Ctx) -> None:
-    """Write the S new tokens' K/V (B,S,nkv,dh) at each row's frontier, in
-    place."""
-    b, s = k.shape[:2]
+def _write_kv(cache: Params, ctx: Ctx, **new: torch.Tensor) -> None:
+    """Write the S new tokens' cache leaves (each (B,S,...): K/V, or MLA's
+    latent and rope key) at each row's frontier, in place."""
+    first = next(iter(new.values()))
+    b, s = first.shape[:2]
     ln = ctx.cache_len
+    name0 = next(iter(new))
     if ctx.paged:
         # rows own disjoint pages, so index pairs never collide across live
         # rows (vacant rows all land on the trash page)
-        prow, poff = _page_translate(ctx, b, s, cache["k"].shape[1])
-        cache["k"][prow, poff] = k
-        cache["v"][prow, poff] = v
+        prow, poff = _page_translate(ctx, b, s, cache[name0].shape[1])
+        for name, x in new.items():
+            cache[name][prow, poff] = x
         return
-    t = cache["k"].shape[1]
+    t = cache[name0].shape[1]
     if ctx.ragged:
-        rows = torch.arange(b, device=k.device)[:, None].expand(b, s)
-        idx = ln[:, None].long() + torch.arange(s, device=k.device)[None, :]
+        rows = torch.arange(b, device=first.device)[:, None].expand(b, s)
+        idx = ln[:, None].long() + torch.arange(s, device=first.device)[None, :]
         if ctx.dense_fits is None:
             ctx.dense_fits = int(ln.max()) + s <= t
         if ctx.dense_fits:
-            cache["k"][rows, idx] = k
-            cache["v"][rows, idx] = v
+            for name, x in new.items():
+                cache[name][rows, idx] = x
         else:                      # drop writes past T_max, as a scatter does
             keep = idx < t
-            cache["k"][rows[keep], idx[keep]] = k[keep]
-            cache["v"][rows[keep], idx[keep]] = v[keep]
+            for name, x in new.items():
+                cache[name][rows[keep], idx[keep]] = x[keep]
         return
     # one offset for the batch: a slice update whose start is clamped so
     # the S positions fit (dynamic_update_slice's rule)
     start = torch.clamp(ln.long(), 0, t - s)
-    idx = start + torch.arange(s, device=k.device)
-    cache["k"].index_copy_(1, idx, k)
-    cache["v"].index_copy_(1, idx, v)
+    idx = start + torch.arange(s, device=first.device)
+    for name, x in new.items():
+        cache[name].index_copy_(1, idx, x)
+
+
+def _mla_attention(p: Params, cfg: ModelConfig, xn: torch.Tensor, ctx: Ctx,
+                   cache: Optional[Params]) -> torch.Tensor:
+    """MLA output (B,S,D); writes this step's latent ``ckv`` and rope key
+    ``krope`` into ``cache``.  Prefill runs full MLA over the new tokens;
+    decode runs the absorbed read, through the split-score kernel
+    (``use_pallas_kernels``) or over the gathered / dense latents."""
+    b, s, _ = xn.shape
+    c_kv, k_rope = mla_compress(p, cfg, xn, ctx.q_pos)
+    if cache is None or ctx.mode == "prefill":
+        out = mla_apply(p, cfg, xn, ctx.q_pos, (c_kv, k_rope), ctx.q_pos)
+        if cache is not None:
+            _write_kv(cache, ctx, ckv=c_kv, krope=k_rope)
+        return out
+    _write_kv(cache, ctx, ckv=c_kv, krope=k_rope)
+    if cfg.use_pallas_kernels:
+        # the split-score kernel: per-row lengths, the S>1 window, and paged
+        # pools streamed through the block table, in-kernel
+        return mla_apply_absorbed(p, cfg, xn, ctx.q_pos,
+                                  (cache["ckv"], cache["krope"]), None, None,
+                                  lengths=ctx.cache_len + 1,
+                                  block_tables=ctx.pages)
+    ckv, krope = cache["ckv"], cache["krope"]
+    if ctx.paged:
+        ckv = gather_pages(ckv, ctx.pages)
+        krope = gather_pages(krope, ctx.pages)
+    t = ckv.shape[1]
+    k_pos = torch.arange(t, dtype=torch.int32, device=xn.device).expand(b, t)
+    lim = (ctx.cache_len[:, None] if ctx.ragged else ctx.cache_len) + s
+    return mla_apply_absorbed(p, cfg, xn, ctx.q_pos, (ckv, krope), k_pos,
+                              k_pos < lim)
 
 
 # ---------------------------------------------------------------------------
@@ -205,6 +258,19 @@ def block_apply(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
                                 rmsnorm(p["norm1"], x, cfg.rms_eps), ctx,
                                 cache)
         return x + mlp_apply(p["mlp"], rmsnorm(p["norm2"], x, cfg.rms_eps))
+    if kind == "mla":
+        x = x + _mla_attention(p["mla"], cfg,
+                               rmsnorm(p["norm1"], x, cfg.rms_eps), ctx,
+                               cache)
+        return x + mlp_apply(p["mlp"], rmsnorm(p["norm2"], x, cfg.rms_eps))
+    if kind == "moe":
+        xn = rmsnorm(p["norm1"], x, cfg.rms_eps)
+        if cfg.mla is not None:
+            x = x + _mla_attention(p["mla"], cfg, xn, ctx, cache)
+        else:
+            x = x + _self_attention(p["attn"], cfg, xn, ctx, cache)
+        return x + moe_apply(p["moe"], cfg,
+                             rmsnorm(p["norm2"], x, cfg.rms_eps))
     if kind in ("mamba1", "mamba2"):
         fn = ssm.mamba1_apply if kind == "mamba1" else ssm.mamba2_apply
         conv_st = cache["conv"] if cache is not None else None

@@ -6,9 +6,11 @@ PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerances: the argmax is bitwise; float32 attention atol 1e-5 (only the
-summation order differs); bfloat16 attention atol = rtol = 2e-2 in float32,
-about one bf16 ulp of the output; the two scans atol = rtol = 1e-4 in
+Tolerances: the argmax is bitwise (byte mask and packed mask alike);
+float32 attention atol 1e-5 (only the summation order differs), the split
+score of absorbed MLA atol = rtol = 1e-4 (576-long dot products in another
+order); bfloat16 attention atol = rtol = 2e-2 in float32, about one bf16
+ulp of the output; the two scans atol = rtol = 1e-4 in
 float32 (the kernels walk the recurrence step by step, the plain SSD scan
 is chunked, and the orders of the sums over the state differ)."""
 import dataclasses
@@ -17,7 +19,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs.base import ModelConfig, SSMConfig
+from repro_torch.configs.base import (MLAConfig, ModelConfig, MoEConfig,
+                                      SSMConfig)
 from repro_torch.kernels.decode_attention import kernel as attn_kernel
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.decode_attention.ref import (decode_attention_ref,
@@ -32,7 +35,8 @@ from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 from repro_torch.models import build_model
-from torch_cases import mamba_inputs, mask_case, paged_case, ssd_inputs
+from torch_cases import (byte_mask_case, mamba_inputs, mask_case,
+                         paged_case, split_case, ssd_inputs)
 
 SCAN_TOL = dict(atol=1e-4, rtol=1e-4)
 
@@ -218,3 +222,108 @@ def test_recurrent_kernel_route_matches_plain_route(cuda_device, group, ssm):
         assert mamba_kernel.mamba_scan_cuda.launches == counts[0] + n_scan
     else:
         assert ssd_kernel.ssd_scan_cuda.launches == counts[1] + n_scan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask_dtype", [torch.bool, torch.int8])
+@pytest.mark.parametrize("b,v", [(4, 403), (4, 129280), (3, 33)])
+def test_masked_argmax_byte_kernel_matches_plain_and_packed(cuda_device, b, v,
+                                                            mask_dtype):
+    """The byte-mask kernel (strided logits, an all-illegal row, ties)
+    equals the plain version and the packed kernel on the packed form of
+    the same mask, bit for bit."""
+    logits, mask, words = byte_mask_case(b, v, seed=b * v)
+    wide = np.zeros((b, v + 64), np.float32)
+    wide[:, :v] = logits
+    lg = torch.from_numpy(wide).to(cuda_device)[:, :v]
+    m = torch.from_numpy(mask).to(cuda_device).to(mask_dtype)
+    before = mask_kernel.masked_argmax_bytes.launches
+    i_k, v_k = masked_argmax(lg, m)
+    assert mask_kernel.masked_argmax_bytes.launches == before + 1
+    i_p, v_p = masked_argmax_ref(lg, m)
+    bits = torch.from_numpy(words.view(np.int32)).to(cuda_device)
+    i_w, v_w = masked_argmax(lg, bits)
+    assert torch.equal(i_k, i_p) and torch.equal(v_k, v_p)
+    assert torch.equal(i_k, i_w) and torch.equal(v_k, v_w)
+    assert i_k[1] == 0 and v_k[1] == -1e30
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("dims", [(128, 512, 64), (4, 16, 8)])
+@pytest.mark.parametrize("s_win", [1, 2])
+def test_split_decode_attention_kernel_matches_plain(cuda_device, dtype, tol,
+                                                     dims, s_win):
+    """The split-score kernel at deepseek-v3's width (128 heads, latent 512,
+    rope 64) and at a small one: paged with NaN in every page no row owns,
+    and contiguous over the gathered stripes."""
+    h, r, d2 = dims
+    q, q2, lat, rp, ln, tbl = split_case(s_win, seed=50 + s_win, h=h, r=r,
+                                         d2=d2, garbage=float("nan"))
+    clean = split_case(s_win, seed=50 + s_win, h=h, r=r, d2=d2)
+
+    def dev(x):
+        return torch.from_numpy(x).to(cuda_device)
+    q_d, q2_d = dev(q).to(dtype), dev(q2).to(dtype)
+    ln_d, tbl_d = dev(ln), dev(tbl)
+    scale = 1.0 / np.sqrt(192.0)
+    lat_d = dev(lat).to(dtype)
+    before = attn_kernel.decode_attention_split_cuda.launches
+    got = decode_attention(q_d, lat_d, lat_d, ln_d, scale=scale, q2=q2_d,
+                           k2=dev(rp).to(dtype), block_tables=tbl_d)
+    assert attn_kernel.decode_attention_split_cuda.launches == before + 1
+    lat_c, rp_c = dev(clean[2]).to(dtype), dev(clean[3]).to(dtype)
+    want = decode_attention_ref(q_d, lat_c, lat_c, ln_d, scale=scale,
+                                q2=q2_d, k2=rp_c, block_tables=tbl_d)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert torch.all(got[0, 0] == 0)             # row 0, position 0: no key
+    kd = gather_pages(lat_c, tbl_d).contiguous()
+    k2d = gather_pages(rp_c, tbl_d).contiguous()
+    torch.testing.assert_close(
+        decode_attention(q_d, kd, kd, ln_d, scale=scale, q2=q2_d,
+                         k2=k2d).float(),
+        decode_attention_ref(q_d, kd, kd, ln_d, scale=scale, q2=q2_d,
+                             k2=k2d).float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [("mla",), ("moe",)])
+def test_mla_kernel_route_matches_plain_route(cuda_device, group):
+    """A small float32 MLA (and MLA + MoE) model decodes ragged rows into
+    a paged latent pool through the split-score kernel and through the
+    plain path: the logits agree, one launch a layer a decode."""
+    cfg = ModelConfig(arch_id="tm", family="moe", n_layers=2, d_model=64,
+                      n_heads=4, n_kv_heads=4, d_ff=128, vocab_size=128,
+                      dtype="float32", max_seq_len=64, group=group,
+                      mla=MLAConfig(q_lora_rank=32, kv_lora_rank=16,
+                                    qk_nope_head_dim=16, qk_rope_head_dim=8,
+                                    v_head_dim=16),
+                      moe=MoEConfig(n_experts=4, top_k=2, d_ff_expert=64,
+                                    n_shared_experts=1, capacity_factor=2.0))
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(0)
+    plain = build_model(cfg)
+    params = plain.init(gen, device=cuda_device)
+    kern = build_model(dataclasses.replace(cfg, use_pallas_kernels=True))
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 128, (2, 12))).to(cuda_device)
+    caches = []
+    for _ in range(2):
+        c = plain.init_cache(2, 32, page_size=8, n_pages=9,
+                             device=cuda_device)
+        c["pages"] = torch.tensor([[3, 1, 5, -1], [2, 8, 4, 0]],
+                                  dtype=torch.int32, device=cuda_device)
+        c["len"] = torch.tensor([0, 3], dtype=torch.int32,
+                                device=cuda_device)
+        caches.append(c)
+    before = attn_kernel.decode_attention_split_cuda.launches
+    i = 0
+    for width in (5, 1, 2):
+        a, caches[0] = plain.decode_step(params, caches[0],
+                                         toks[:, i:i + width])
+        b, caches[1] = kern.decode_step(params, caches[1],
+                                        toks[:, i:i + width])
+        torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-4)
+        i += width
+    assert attn_kernel.decode_attention_split_cuda.launches == before + 3 * 2

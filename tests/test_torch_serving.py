@@ -5,18 +5,22 @@ single-request path and for the continuous-batching scheduler (paged with a
 pool small enough to force recompute preemption, and contiguous), with
 DOMINO and unconstrained rows in one batch.  The recurrent families (a
 Mamba1 stack, a Mamba2 + shared-attention hybrid) serve on the dense
-layout with exact-length admission, and must match too.  float32 on the
-CPU; the port's kernel wrappers take their plain versions here."""
+layout with exact-length admission, and must match too.  MLA (dense
+family) and MLA + MoE serve over paged latent pools, kernel route on and
+off.  float32 on the CPU; the port's kernel wrappers take their plain
+versions here."""
 import jax
 import numpy as np
 import pytest
 import torch
 
-from repro.configs.base import ModelConfig, SSMConfig
+from repro.configs.base import MLAConfig, ModelConfig, MoEConfig, SSMConfig
 from repro.models import build_model
 from repro.serving import (ConstraintSpec, DecodeParams, EngineConfig,
                            Request, ServingEngine)
+from repro_torch.configs.base import MLAConfig as TMLAConfig
 from repro_torch.configs.base import ModelConfig as TModelConfig
+from repro_torch.configs.base import MoEConfig as TMoEConfig
 from repro_torch.configs.base import SSMConfig as TSSMConfig
 from repro_torch.models import build_model as t_build_model
 from repro_torch.models.convert import params_from_numpy
@@ -204,8 +208,77 @@ def test_recurrent_arch_serves_dense_and_refuses_paging(recurrent_engines):
         ContinuousBatchingScheduler(ports[True], capacity=2, paged=True)
 
 
+MLA = dict(q_lora_rank=32, kv_lora_rank=16, qk_nope_head_dim=16,
+           qk_rope_head_dim=8, v_head_dim=16)
+# tests/test_paged_kv.py's "p-mla" and tests/test_batch_serving.py's "b-mla"
+LATENT = {
+    "mla": dict(family="dense", group=("mla",), moe=None),
+    "mla-moe": dict(family="moe", group=("moe",),
+                    moe=dict(n_experts=4, top_k=2, d_ff_expert=64,
+                             capacity_factor=2.0)),
+}
+
+
+@pytest.fixture(scope="module")
+def latent_engines(small_tokenizer, json_grammar):
+    """arch -> {kernels: (JAX engine, port engine)} on one set of
+    weights."""
+    tok = small_tokenizer
+    out = {}
+    for arch, a in LATENT.items():
+        kw = dict(BASE, arch_id=f"ts-{arch}", family=a["family"],
+                  group=a["group"], vocab_size=tok.vocab_size)
+        pairs, params = {}, None
+        for kernels in (False, True):
+            cfg = ModelConfig(mla=MLAConfig(**MLA),
+                              moe=a["moe"] and MoEConfig(**a["moe"]),
+                              use_pallas_kernels=kernels, **kw)
+            tcfg = TModelConfig(mla=TMLAConfig(**MLA),
+                                moe=a["moe"] and TMoEConfig(**a["moe"]),
+                                use_pallas_kernels=kernels, **kw)
+            m = build_model(cfg)
+            if params is None:
+                params = m.init(jax.random.PRNGKey(2))
+            tparams = params_from_numpy(jax.tree.map(np.asarray, params),
+                                        tcfg)
+            eng = ServingEngine(m, params, tok, json_grammar,
+                                EngineConfig(mode="domino", max_tokens=10),
+                                max_len=256)
+            teng = TServingEngine(t_build_model(tcfg), tparams, tok,
+                                  json_grammar,
+                                  TEngineConfig(mode="domino", max_tokens=10),
+                                  max_len=256, device="cpu")
+            pairs[kernels] = (eng, teng)
+        out[arch] = pairs
+    return out
+
+
+@pytest.mark.parametrize("kernels", [False, True])
+@pytest.mark.parametrize("arch", list(LATENT))
+def test_latent_generate_batch_matches_paged(latent_engines, arch, kernels):
+    """Five requests through two slots over a paged latent pool of 16-token
+    pages: ids, statuses, interventions and forwards equal the JAX
+    scheduler's, and the port's own single-request results."""
+    eng, teng = latent_engines[arch][kernels]
+    kw = dict(max_batch=2, page_size=16)
+    got = teng.generate_batch(PROMPTS, **kw)
+    assert teng.last_batch_stats["paged"]
+    _same(eng.generate_batch(PROMPTS, **kw), got)
+    if arch == "mla":     # no MoE: batch padding cannot move the routing
+        assert [teng.generate(p).token_ids for p in PROMPTS] == \
+            [g.token_ids for g in got]
+
+
+@pytest.mark.parametrize("arch", list(LATENT))
+def test_latent_generate_matches(latent_engines, arch):
+    eng, teng = latent_engines[arch][True]
+    _same([eng.generate(p) for p in PROMPTS[:2]],
+          [teng.generate(p) for p in PROMPTS[:2]])
+
+
 @pytest.mark.parametrize("arch,layout", [("zamba2-1.2b", "contiguous KV"),
-                                         ("stablelm-1.6b", "paged KV")])
+                                         ("stablelm-1.6b", "paged KV"),
+                                         ("deepseek-v3-671b", "paged KV")])
 def test_serve_cli_prints_the_layout_the_scheduler_chose(capsys, arch,
                                                          layout):
     from repro_torch.launch import serve

@@ -79,3 +79,40 @@ def ssd_inputs(b, s, h, d, n, seed):
             -np.abs(rng.normal(size=(b, s, h))).astype(np.float32) * 0.3,
             np.abs(rng.normal(size=(b, s, h))).astype(np.float32) * 0.2,
             rng.normal(size=(b, h, d, n)).astype(np.float32))
+
+
+def split_case(s_win, seed, h=QH, r=16, d2=8, garbage=1e3):
+    """Absorbed-MLA split-score inputs over one KV group: q (B,S,1,h,r),
+    q2 (B,S,1,h,d2), a latent pool (1 + B*MP, PS, 1, r) that is both key
+    and value, a rope pool (1 + B*MP, PS, 1, d2), lengths (B,) and a
+    shuffled block table (B, MP) with -1 vacancies; pages no row owns hold
+    ``garbage``."""
+    rng = np.random.default_rng(seed)
+    n_pages = 1 + B * MP
+    lat = rng.normal(size=(n_pages, PS, 1, r)).astype(np.float32)
+    rp = rng.normal(size=(n_pages, PS, 1, d2)).astype(np.float32)
+    perm = list(rng.permutation(np.arange(1, n_pages)))
+    tbl = np.full((B, MP), -1, np.int32)
+    owned = []
+    for i, ln in enumerate(LENS):
+        n = -(-(ln + s_win - 1) // PS)
+        tbl[i, :n] = perm[:n]
+        owned += perm[:n]
+        del perm[:n]
+    foreign = np.ones(n_pages, bool)
+    foreign[owned] = False
+    lat[foreign] = garbage
+    rp[foreign] = -garbage
+    q = rng.normal(size=(B, s_win, 1, h, r)).astype(np.float32)
+    q2 = rng.normal(size=(B, s_win, 1, h, d2)).astype(np.float32)
+    return q, q2, lat, rp, np.asarray(LENS, np.int32), tbl
+
+
+def byte_mask_case(b, v, seed):
+    """Logits (B, V) f32 and a (B, V) bool mask with the rows of
+    ``mask_case``: row 1 (if any) all illegal, row 2 (if any) ties among
+    legal tokens at the maximum; plus the mask's packed uint32 words."""
+    logits, words = mask_case(b, v, seed)
+    bits = (words[:, :, None] >> np.arange(32, dtype=np.uint32)) & 1
+    mask = bits.reshape(b, -1)[:, :v].astype(bool)
+    return logits, mask, words
