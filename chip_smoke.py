@@ -17,7 +17,9 @@ non-zero without the final result line):
     (shuffled tables, -1 vacancies, foreign pages poisoned with NaN) and
     contiguous, S in {1, 3}, float32 (atol 1e-5: only the summation order
     differs) and bfloat16 (atol = rtol = 2e-2 in float32: about one bf16
-    ulp of the output); and the split-score kernel of absorbed MLA at
+    ulp of the output); timed at B=4 with 1000 keys a row (the pool warm in
+    the L2) and 4096 (a pool 2.7 times the L2), each with the key split it
+    chose; and the split-score kernel of absorbed MLA at
     deepseek-v3's width (128 heads, latent 512, rope 64), paged and
     contiguous, S in {1, 2}, float32 (atol = rtol = 1e-4: 576-long dot
     products in another order) and bfloat16 (2e-2), NaN-poisoned pools;
@@ -162,7 +164,49 @@ def phase_env(torch):
     for line in build.build_log.splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             log(f"[build] {line.strip()}")
+    for fn, info in _ptxas_by_function(build.build_log).items():
+        if "decode_attention_kernel" in fn:
+            log(f"[build] {_demangle(fn)}: {info}")
     return card
+
+
+def _ptxas_by_function(text):
+    """ptxas -v's report, one line a kernel: registers, spills and static
+    shared memory, by mangled name."""
+    import re
+    out, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) "
+                      r"'?([A-Za-z0-9_]+)'?", line)
+        if m:
+            fn = m.group(1)
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out.setdefault(fn, {})["spill"] = (f"spills {m.group(1)}/"
+                                               f"{m.group(2)} B st/ld")
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m:
+            out.setdefault(fn, {})["regs"] = (
+                f"{m.group(1)} registers, static smem "
+                f"{m.group(2) or 0} B")
+    return {fn: ", ".join(v[k] for k in ("regs", "spill") if k in v)
+            for fn, v in out.items()}
+
+
+def _demangle(name):
+    """``name`` as C++ (``cu++filt`` beside nvcc), else as it is."""
+    from repro_torch.kernels import build
+    tool = pathlib.Path(build._nvcc()).parent / "cu++filt"
+    if tool.exists():
+        r = subprocess.run([str(tool), name], capture_output=True, text=True,
+                           timeout=60)
+        if r.returncode == 0 and r.stdout.strip():
+            return r.stdout.strip()
+    return name
 
 
 # -- phase 2 --------------------------------------------------------------------
@@ -256,8 +300,8 @@ def phase_masked_argmax(torch):
 # -- phase 3 --------------------------------------------------------------------
 
 
-def _paged_case(torch, gen, dtype, s_win, qh, lens, poison):
-    b, g, d, ps, mp = len(lens), 32, 64, PAGE_SIZE, 20
+def _paged_case(torch, gen, dtype, s_win, qh, lens, poison, mp=20):
+    b, g, d, ps = len(lens), 32, 64, PAGE_SIZE
     n_pages = 1 + b * mp
     kp = torch.randn((n_pages, ps, g, d), generator=gen, device="cuda")
     vp = torch.randn((n_pages, ps, g, d), generator=gen, device="cuda")
@@ -329,17 +373,42 @@ def phase_decode_attention(torch):
             log(f"[attn] {str(dtype).split('.')[-1]} S={s_win} Qh={qh} "
                 f"lens={lens}: paged err {err:.2e}, poisoned pool bitwise "
                 f"equal, contiguous err {err_c:.2e}")
-    gen.manual_seed(4)
-    q, kp, vp, ln, tbl = _paged_case(torch, gen, torch.bfloat16, 1, 1,
-                                     [1000] * 4, False)
-    k_ms = time_ms(torch, lambda: decode_attention_cuda(
-        q, kp, vp, ln, block_tables=tbl))
-    p_ms = time_ms(torch, lambda: decode_attention_ref(
-        q, kp, vp, ln, block_tables=tbl))
-    lib_ms = time_ms(torch, _sdpa_yardstick(torch, q, kp, vp, ln, tbl))
-    log(f"[attn] bf16 B=4 G=32 D=64 1000 keys/row: kernel {k_ms:.4f} ms, "
-        f"plain {p_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
-        f"{_attn_bound(q, kp, ln, tbl, 'bfloat16')[0]:.5f} ms")
+    timed = {}
+    for name, keys, mp in (("long", 1000, 20), ("long_cold", 4096, 64)):
+        gen.manual_seed(4)
+        q, kp, vp, ln, tbl = _paged_case(torch, gen, torch.bfloat16, 1, 1,
+                                         [keys] * 4, False, mp=mp)
+        k_ms = time_ms(torch, lambda: decode_attention_cuda(
+            q, kp, vp, ln, block_tables=tbl))
+        p_ms = time_ms(torch, lambda: decode_attention_ref(
+            q, kp, vp, ln, block_tables=tbl))
+        lib_ms = time_ms(torch, _sdpa_yardstick(torch, q, kp, vp, ln, tbl))
+        bnd, by = _attn_bound(q, kp, ln, tbl, "bfloat16")
+        pool_mb = 2 * kp.numel() * kp.element_size() / 1e6
+        shape = (f"B=4 S=1 G=32 Qh=1 D=64 bf16, {keys} keys a row over "
+                 f"{PAGE_SIZE}-key pages, K+V pool {pool_mb:.1f} MB")
+        log(f"[attn] {name}: {shape}: {_plan_text(q, kp, tbl)}; kernel "
+            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, library {lib_ms:.4f} ms, "
+            f"bound {bnd:.5f} ms by {by} ({bnd / k_ms:.0%} of it)")
+        timed[name] = {"shape": shape, "ms": k_ms, "plain_ms": p_ms,
+                       "library_ms": lib_ms, "bound_ms": bnd}
+    return timed
+
+
+def _plan_text(q, kp, tbl):
+    """The key split the plain-score kernel takes at these shapes, and its
+    dynamic shared memory a block."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.decode_attention.kernel import _DTYPES
+    from repro_torch.kernels.decode_attention.ref import key_split_plan
+    b, s_win, g, qh, dk = q.shape
+    n_tiles = 1 if tbl is None else tbl.shape[1]
+    n_split, split_len = key_split_plan(b, g, kp.shape[1], n_tiles,
+                                        tbl is not None)
+    smem = build.library().repro_decode_attention_smem(
+        _DTYPES[q.dtype], s_win * qh, dk, dk)
+    return (f"n_split {n_split} x {split_len} keys, grid ({b * g}, "
+            f"{n_split}) of 128 threads, {smem} B dynamic smem a block")
 
 
 def _split_case(torch, gen, dtype, s_win, lens, poison, h=128, r=512,
@@ -1117,7 +1186,7 @@ def _mid_decode_call(calls, seq_axis):
     return pick[len(pick) // 2]
 
 
-def phase_kernels(torch, paths, scans, split_long, bytes_long):
+def phase_kernels(torch, paths, scans, attn_long, split_long, bytes_long):
     """Each kernel on the inputs of a mid-run call of a serving path."""
     from repro_torch.kernels.decode_attention.kernel import (
         decode_attention_cuda, decode_attention_split_cuda)
@@ -1174,7 +1243,8 @@ def phase_kernels(torch, paths, scans, split_long, bytes_long):
             "max_abs_err": err,
             "shape": (f"q {tuple(q.shape)} {'pool' if tbl is not None else 'stripes'} "
                       f"{tuple(kp.shape)} lengths {ln.tolist()} ({arch}, "
-                      f"{'paged' if tbl is not None else 'contiguous'})"),
+                      f"{'paged' if tbl is not None else 'contiguous'}; "
+                      f"{_plan_text(q, kp, tbl)})"),
             "ms": time_ms(torch, lambda: decode_attention_cuda(
                 q, kp, vp, ln, block_tables=tbl)),
             "plain_ms": time_ms(torch, lambda: decode_attention_ref(
@@ -1191,6 +1261,8 @@ def phase_kernels(torch, paths, scans, split_long, bytes_long):
              "parity": "atol/rtol 2e-2 (bf16)"}
     entry.update(attn_entry("stablelm-1.6b"))
     entry["contiguous"] = attn_entry("zamba2-1.2b")
+    entry["long"] = attn_long["long"]
+    entry["long_cold"] = attn_long["long_cold"]
     out.append(entry)
 
     # the split score, at a mid-run decode call of deepseek-v3's bf16 run
@@ -1303,9 +1375,10 @@ def phase_kernels(torch, paths, scans, split_long, bytes_long):
 def _finite(k) -> bool:
     nums = [k[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms",
                                "max_abs_err")]
-    if "contiguous" in k:
-        nums += [k["contiguous"][key] for key in ("ms", "plain_ms",
-                                                   "bound_ms", "library_ms")]
+    for sub in ("contiguous", "long", "long_cold"):
+        if sub in k:
+            nums += [k[sub].get(key) for key in ("ms", "plain_ms", "bound_ms",
+                                                 "library_ms")]
     return all(x is None or math.isfinite(x) for x in nums)
 
 
@@ -1337,7 +1410,7 @@ def main() -> int:
     try:
         card = timed("env and build", phase_env, torch)
         bytes_long = timed("masked argmax", phase_masked_argmax, torch)
-        timed("decode attention", phase_decode_attention, torch)
+        attn_long = timed("decode attention", phase_decode_attention, torch)
         split_long = timed("split-score attention", phase_split_attention,
                            torch)
         scans = timed("scans", phase_scans, torch)
@@ -1357,7 +1430,7 @@ def main() -> int:
         paths[MASK_OP_PATH] = timed("masked_argmax op", phase_mask_op, torch,
                                     paths["deepseek-v3-671b"])
         kernels = timed("kernels", phase_kernels, torch, paths, scans,
-                        split_long, bytes_long)
+                        attn_long, split_long, bytes_long)
     except Exception as e:  # every phase's failure fails the run
         import traceback
         traceback.print_exc()

@@ -99,9 +99,11 @@ def library() -> ctypes.CDLL:
             _P, ctypes.c_longlong, _P, _I, _I, _I, _P, _P, _P]
         lib.repro_masked_argmax_packed.restype = _I
         lib.repro_decode_attention.argtypes = [
-            _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-            ctypes.c_float, _P]
+            _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+            _I, _I, _I, ctypes.c_float, _P]
         lib.repro_decode_attention.restype = _I
+        lib.repro_decode_attention_smem.argtypes = [_I, _I, _I, _I]
+        lib.repro_decode_attention_smem.restype = ctypes.c_longlong
         lib.repro_decode_attention_split.argtypes = [
             _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
             ctypes.c_float, _P]

@@ -10,26 +10,41 @@
 //   out[b, s, g, qh] = softmax_t(q . k_t * scale) @ v   over keys t < lengths[b] + s
 // Rows that see no key give exactly 0.  Paged mode reads key t of row b from
 // pool page max(block_tables[b, t / ps], 0) at offset t % ps; contiguous
-// mode reads it from k[b, t] (page size = T, one page per row).
+// mode reads it from k[b, t] (page size = T, one page per row).  S * Qh <= 16
+// query rows, Dk and Dv multiples of 8 and at most 128, float32 or bfloat16.
 //
 // What bounds it: bytes.  Per (row, group) it reads each visible key and value
-// once (2 * D elements), and does 4 * D flops per key and query row -- about
-// one flop per byte in bf16, far below the ~300 the card needs before the
-// arithmetic, not the memory, is the limit.
+// once (2 * D elements a key), and does 4 * D flops per key and query row --
+// about one flop per byte in bf16 at Qh = 1, far below the ~300 the card
+// needs before the arithmetic, not the memory, is the limit.  So the design
+// is about keeping enough bytes in flight to cover the memory's latency:
 //
-// Design: one block of four warps per (b, g); the block loops over the row's
-// keys up to its own frontier lengths[b] + S - 1, in chunks of 32 keys, the
-// chunks dealt round-robin to the warps.  This loop stands in for the TPU's
-// sequential T axis.  Within a chunk each lane scores one key against every
-// query row (the queries sit in shared memory as float32), then the warp
-// updates its own online softmax state (m, l, acc) for each query row; lane l
-// holds accumulator elements [l * DPL, (l + 1) * DPL).  The warps' states are
-// merged once at the end through shared memory.  No key at or past the
-// frontier is ever read, so pages that other rows own -- or stale, even NaN,
-// contents of this row's own pages -- never reach the accumulator.  The block
-// loads its own block-table entries; entries <= 0 go to the trash page 0.
-// Keys past the table's width are never visited (the frontier is capped at
-// n_tiles * page_size), matching the TPU kernel's grid.
+// - Keys split across blocks ("flash-decoding").  The grid is (B * G,
+//   n_split): block (b * G + g, j) takes keys [j * L, (j + 1) * L) of row b,
+//   group g.  The caller picks n_split and L from shapes alone (the batch, G
+//   and the key capacity n_tiles * page_size: key_split_plan in
+//   kernels/decode_attention/ref.py), never from the lengths, so a call reads
+//   nothing back to the host.  A block whose range lies wholly past its row's
+//   frontier lengths[b] + S - 1 exits at once and writes nothing.
+// - K and V tiles of 64 keys staged in shared memory with cp.async, 16 bytes
+//   a thread, coalesced, in two stages: tile i + 1 is in flight while tile i
+//   is scored and accumulated.  A block loads its length, its query rows and
+//   the table entries its range spans together, once, before it knows its
+//   frontier.  Positions past the frontier are zero-filled (src-size 0), never
+//   read, so pages that other rows own -- or stale, even NaN, contents of
+//   this row's own pages -- never reach the accumulator.  Table entries <= 0
+//   go to the trash page 0; the frontier is capped at n_tiles * page_size,
+//   matching the TPU kernel's grid.
+// - Within a block each warp scores 16 keys of a tile, two lanes a key (each
+//   half of the dot product), and keeps its own online softmax state (m, l,
+//   acc) for each query row; lane l holds accumulator elements
+//   [l * DPL, (l + 1) * DPL).  The four warps' states merge once at the end.
+// - Merging the splits: a row whose frontier lies in its first split is
+//   written by that block directly.  Otherwise each live block writes its
+//   partial state (m, l and the unnormalised acc) to scratch, and the last
+//   block of (b, g) to arrive -- one atomic counter a (b, g) -- merges the
+//   live partials in split order, each rescaled by exp(m_j - m).  No float
+//   atomics: equal inputs give bitwise-equal outputs.
 //
 // Split score (absorbed MLA).  The latent cache is both key and value:
 //   out[b, s, g, qh] = softmax_t((q . k_t + q2 . k2_t) * scale) @ k_t
@@ -117,40 +132,187 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// -- plain score: keys split across blocks, tiles staged with cp.async -----------
+
+constexpr int kTileKeys = 64;                   // keys a stage holds
+constexpr int kWarpKeys = kTileKeys / kWarps;   // keys a warp scores, two lanes a key
+constexpr int kMaxSplitPages = kThreads;        // table entries one split may span
+
+// 16-byte asynchronous copy to shared memory; src-size 0 zero-fills the
+// destination and reads nothing from ``src``.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool read) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = read ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// N consecutive elements as float32 (N in {1, 2, 4}; p aligned to N elements).
+template <int N>
+__device__ __forceinline__ void load_floats(const float* p, float* out) {
+  if constexpr (N == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    out[0] = x.x;
+    out[1] = x.y;
+    out[2] = x.z;
+    out[3] = x.w;
+  } else if constexpr (N == 2) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    out[0] = x.x;
+    out[1] = x.y;
+  } else {
+    out[0] = p[0];
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void load_floats(const __nv_bfloat16* p, float* out) {
+  if constexpr (N == 4) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+    const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+    out[0] = a.x;
+    out[1] = a.y;
+    out[2] = b.x;
+    out[3] = b.y;
+  } else if constexpr (N == 2) {
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    out[0] = a.x;
+    out[1] = a.y;
+  } else {
+    out[0] = __bfloat162float(p[0]);
+  }
+}
+
+// Bytes of one staged key row: padded by 16 so that the eight lanes of a
+// quarter warp, reading one 16-byte column of eight rows, hit distinct banks.
+template <typename T>
+__host__ __device__ inline int key_row_bytes(int Dk) {
+  return Dk * static_cast<int>(sizeof(T)) + 16;
+}
+
+// Dynamic shared memory of one block: two stages of K and V tiles (reused
+// for the warps' states at the end), the pool rows of two tiles' keys, the
+// query rows in float32, the split's table entries and one flag.  The
+// stages always cover the warps' states: at 16 query rows those take
+// 256 * (Dv + 2) bytes, the stages at least 256 * Dv + 4096.
+template <typename T>
+__host__ __device__ inline size_t plain_smem_bytes(int R, int Dk, int Dv) {
+  return 2 * (size_t)kTileKeys * (key_row_bytes<T>(Dk) + Dv * sizeof(T)) +
+         2 * kTileKeys * sizeof(long long) + sizeof(float) * (size_t)R * Dk +
+         sizeof(int) * (kMaxSplitPages + 1);
+}
+
 // RMAX bounds the S * Qh query rows a block holds in registers; DPL is the
 // number of value elements each lane accumulates (Dv <= 32 * DPL).
 template <typename T, int RMAX, int DPL>
 __global__ void __launch_bounds__(kThreads)
     decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v, const int* __restrict__ lengths,
-                            const int* __restrict__ tables, T* __restrict__ out, int S, int G,
-                            int Qh, int Dk, int Dv, int page_size, int n_tiles, float scale) {
-  extern __shared__ float smem[];
+                            const int* __restrict__ tables, T* __restrict__ out,
+                            float* __restrict__ part, int* __restrict__ counters, int S, int G,
+                            int Qh, int Dk, int Dv, int page_size, int n_tiles, int split_len,
+                            float scale) {
+  constexpr int kVec = Elem<T>::kVec;
+  extern __shared__ __align__(16) unsigned char plain_smem[];
   const int R = S * Qh;
-  float* q_s = smem;                 // (R, Dk)
-  float* m_s = q_s + R * Dk;         // (kWarps, R)
-  float* l_s = m_s + kWarps * R;     // (kWarps, R)
-  float* acc_s = l_s + kWarps * R;   // (kWarps, R, Dv)
+  const int k_row = key_row_bytes<T>(Dk);
+  const int v_row = Dv * static_cast<int>(sizeof(T));
+  unsigned char* k_st = plain_smem;                         // (2, kTileKeys) rows of k_row
+  unsigned char* v_st = k_st + 2 * kTileKeys * k_row;       // (2, kTileKeys) rows of v_row
+  long long* row_s = reinterpret_cast<long long*>(v_st + 2 * kTileKeys * v_row);
+                                                            // (2, kTileKeys) pool rows
+  float* q_s = reinterpret_cast<float*>(row_s + 2 * kTileKeys);  // (R, Dk)
+  int* page_s = reinterpret_cast<int*>(q_s + R * Dk);       // (kMaxSplitPages,)
+  int* last_s = page_s + kMaxSplitPages;
+  // after the key loop the stages hold the warps' states
+  float* m_s = reinterpret_cast<float*>(plain_smem);        // (kWarps, R)
+  float* l_s = m_s + kWarps * R;                            // (kWarps, R)
+  float* acc_s = l_s + kWarps * R;                          // (kWarps, R, Dv)
 
-  const int b = blockIdx.x / G;
-  const int g = blockIdx.x % G;
+  const int bg = blockIdx.x;
+  const int b = bg / G;
+  const int g = bg % G;
+  const int split = blockIdx.y;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const long long cap = (long long)n_tiles * page_size;
+  const int lo = split * split_len;                         // the split's first key
+  const int* tbl = tables == nullptr ? nullptr : tables + (long long)b * n_tiles;
+  const int p0 = lo / page_size;                            // its first page (paged)
 
-  // query rows of this (b, g): q[b, s, g, qh, :] for r = s * Qh + qh
+  // Issue every load the block needs before its frontier is known: the row's
+  // length, the table entries the split spans and the query rows.
+  const int base = lengths[b];                              // keys visible to window position 0
+  int entry = 0;
+  if (tbl != nullptr) {
+    const int pi = p0 + threadIdx.x;   // page pi holds keys [pi * ps, (pi + 1) * ps)
+    if (pi < n_tiles && (long long)pi * page_size < (long long)lo + split_len) entry = tbl[pi];
+  }
   for (int e = threadIdx.x; e < R * Dk; e += kThreads) {
     const int r = e / Dk, d = e % Dk;
     const int s = r / Qh, qh = r % Qh;
     q_s[e] = Elem<T>::to_float(q[((((long long)b * S + s) * G + g) * Qh + qh) * Dk + d]);
   }
-  __syncthreads();
-
-  const int base = lengths[b];               // keys visible to window position 0
   long long frontier = (long long)base + S - 1;
-  const long long cap = (long long)n_tiles * page_size;
   if (frontier > cap) frontier = cap;
-  const int n_keys = frontier > 0 ? static_cast<int>(frontier) : 0;
-  const int* tbl = tables == nullptr ? nullptr : tables + (long long)b * n_tiles;
+  if (frontier < 0) frontier = 0;
+  // splits that hold a visible key; split 0 also answers a row that sees none
+  const int n_live = static_cast<int>((frontier + split_len - 1) / split_len);
+  if (split > 0 && split >= n_live) return;
+  page_s[threadIdx.x] = entry > 0 ? entry : 0;
+  __syncthreads();
+  const int hi = static_cast<int>(min((long long)lo + split_len, frontier));  // keys [lo, hi)
+  const int n_steps = hi > lo ? (hi - lo + kTileKeys - 1) / kTileKeys : 0;
+
+  // Pool rows of tile i's keys ((pool row * page_size + offset) * G + g),
+  // -1 past the frontier; one thread a key, so one division a key.
+  auto rows = [&](int i) {
+    if (threadIdx.x < kTileKeys) {
+      const int t = lo + i * kTileKeys + threadIdx.x;
+      long long row = -1;
+      if (t < hi) {
+        row = tbl != nullptr
+                  ? ((long long)page_s[t / page_size - p0] * page_size + t % page_size) * G + g
+                  : ((long long)b * page_size + t) * G + g;
+      }
+      row_s[(i & 1) * kTileKeys + threadIdx.x] = row;
+    }
+  };
+  // Each thread copies the same 16-byte chunk x of every (kThreads / chunks)-th
+  // key of a tile; the pattern is fixed, only the rows change.
+  const int kc = Dk / kVec;            // 16-byte chunks of a key row
+  const int vc = Dv / kVec;            // and of a value row
+  const int k_keys = kThreads / kc;    // keys one sweep of the block copies
+  const int v_keys = kThreads / vc;
+  const int kx = threadIdx.x % kc, kj = threadIdx.x / kc;
+  const int vx = threadIdx.x % vc, vj = threadIdx.x / vc;
+  auto issue = [&](int i) {
+    const long long* rs = row_s + (i & 1) * kTileKeys;
+    unsigned char* ks = k_st + (i & 1) * kTileKeys * k_row;
+    unsigned char* vs = v_st + (i & 1) * kTileKeys * v_row;
+    if (kj < k_keys) {
+      for (int j = kj; j < kTileKeys; j += k_keys) {
+        const long long row = rs[j];
+        cp_async16(ks + j * k_row + kx * 16, k + (row < 0 ? 0 : row) * Dk + kx * kVec, row >= 0);
+      }
+    }
+    if (vj < v_keys) {
+      for (int j = vj; j < kTileKeys; j += v_keys) {
+        const long long row = rs[j];
+        cp_async16(vs + j * v_row + vx * 16, v + (row < 0 ? 0 : row) * Dv + vx * kVec, row >= 0);
+      }
+    }
+  };
 
   float m[RMAX], l[RMAX], acc[RMAX][DPL];
 #pragma unroll
@@ -160,79 +322,91 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int i = 0; i < DPL; ++i) acc[r][i] = 0.f;
   }
+  const int kk = lane & 15;      // the lane's key among the warp's 16
+  const int side = lane >> 4;    // and its half of the dot product
+  const int j0 = warp * kWarpKeys;
+  const bool owns_v = lane * DPL < Dv;   // Dv % 8 == 0: all DPL elements or none
 
-  for (int c0 = warp * 32; c0 < n_keys; c0 += kWarps * 32) {
-    const int t = c0 + lane;
-    const bool have = t < n_keys;
-    long long kv_row = 0;  // (pool row * page_size + offset) * G + g
+  rows(0);
+  rows(1);
+  __syncthreads();
+  if (n_steps > 0) issue(0);
+  cp_async_commit();
+  for (int i = 0; i < n_steps; ++i) {
+    if (i + 1 < n_steps) issue(i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();          // this thread's copies of tile i have landed
+    __syncthreads();             // and everyone's
+    if (i + 2 < n_steps) rows(i + 2);   // tile i's rows are spent
+    const unsigned char* ks = k_st + (i & 1) * kTileKeys * k_row;
+    const unsigned char* vs = v_st + (i & 1) * kTileKeys * v_row;
+    const int t = lo + i * kTileKeys + j0 + kk;
+    const bool have = t < hi;
+    // half the dot products of key j0 + kk: 16-byte vectors side, side + 2, ...
     float sc[RMAX];
 #pragma unroll
     for (int r = 0; r < RMAX; ++r) sc[r] = 0.f;
-    if (have) {
-      int page;
-      if (tbl != nullptr) {
-        page = tbl[t / page_size];
-        page = page > 0 ? page : 0;
-      } else {
-        page = b;
-      }
-      kv_row = ((long long)page * page_size + t % page_size) * G + g;
-      const T* krow = k + kv_row * Dk;
-      for (int d = 0; d < Dk; d += Elem<T>::kVec) {
-        float kf[Elem<T>::kVec];
-        Elem<T>::load_vec(krow + d, kf);
+    const T* krow = reinterpret_cast<const T*>(ks + (j0 + kk) * k_row);
+#pragma unroll 4
+    for (int x = side; x < kc; x += 2) {
+      float kf[kVec];
+      Elem<T>::load_vec(krow + x * kVec, kf);
 #pragma unroll
-        for (int r = 0; r < RMAX; ++r) {
-          if (r < R) {
-            const float* qr = q_s + r * Dk + d;
+      for (int r = 0; r < RMAX; ++r) {
+        if (r < R) {
+          const float* qr = q_s + r * Dk + x * kVec;
 #pragma unroll
-            for (int j = 0; j < Elem<T>::kVec; ++j) sc[r] += qr[j] * kf[j];
-          }
+          for (int jj = 0; jj < kVec; ++jj) sc[r] += qr[jj] * kf[jj];
         }
       }
     }
-    // online softmax update, one query row at a time
+    // online softmax update, one query row at a time; lanes kk and kk + 16
+    // hold the same score, and only the lower half counts it into l
     float p[RMAX];
 #pragma unroll
     for (int r = 0; r < RMAX; ++r) {
       p[r] = 0.f;
       if (r < R) {
+        const float full = sc[r] + __shfl_xor_sync(0xffffffffu, sc[r], 16);
         const bool valid = have && t < base + r / Qh;
-        const float s_val = valid ? sc[r] * scale : kNeg;
+        const float s_val = valid ? full * scale : kNeg;
         const float m_new = fmaxf(m[r], warp_max(s_val));
-        // explicit re-mask: a row with no valid key in this chunk must not
+        // explicit re-mask: a row with no valid key in this tile must not
         // count exp(0) = 1 per dead key into l
         p[r] = valid ? expf(s_val - m_new) : 0.f;
         const float corr = expf(m[r] - m_new);
-        l[r] = l[r] * corr + warp_sum(p[r]);
+        l[r] = l[r] * corr + warp_sum(side == 0 ? p[r] : 0.f);
 #pragma unroll
-        for (int i = 0; i < DPL; ++i) acc[r][i] *= corr;
+        for (int i2 = 0; i2 < DPL; ++i2) acc[r][i2] *= corr;
         m[r] = m_new;
       }
     }
-    // acc += p @ v over the chunk's keys; lane l owns elements l*DPL..
-    const int n_in = min(32, n_keys - c0);
-    for (int j = 0; j < n_in; ++j) {
-      const long long row_j = __shfl_sync(0xffffffffu, kv_row, j);
-      const T* vrow = v + row_j * Dv;
-      float vf[DPL];
+    // acc += p @ v over the warp's 16 keys, read from the staged tile; keys
+    // past the frontier have p = 0 and zero-filled rows, so they add 0
 #pragma unroll
-      for (int i = 0; i < DPL; ++i) {
-        const int d = lane * DPL + i;
-        vf[i] = d < Dv ? Elem<T>::to_float(vrow[d]) : 0.f;
+    for (int j = 0; j < kWarpKeys; ++j) {
+      float vf[DPL];
+      if (owns_v) {
+        load_floats<DPL>(reinterpret_cast<const T*>(vs + (j0 + j) * v_row) + lane * DPL, vf);
+      } else {
+#pragma unroll
+        for (int i2 = 0; i2 < DPL; ++i2) vf[i2] = 0.f;
       }
 #pragma unroll
       for (int r = 0; r < RMAX; ++r) {
         if (r < R) {
           const float pj = __shfl_sync(0xffffffffu, p[r], j);
 #pragma unroll
-          for (int i = 0; i < DPL; ++i) acc[r][i] += pj * vf[i];
+          for (int i2 = 0; i2 < DPL; ++i2) acc[r][i2] += pj * vf[i2];
         }
       }
     }
+    __syncthreads();             // the next issue overwrites this stage
   }
+  cp_async_wait<0>();
+  __syncthreads();
 
-  // merge the warps' partial softmax states
+  // merge the warps' states (the stages are free now)
 #pragma unroll
   for (int r = 0; r < RMAX; ++r) {
     if (r < R) {
@@ -241,13 +415,17 @@ __global__ void __launch_bounds__(kThreads)
         l_s[warp * R + r] = l[r];
       }
 #pragma unroll
-      for (int i = 0; i < DPL; ++i) {
-        const int d = lane * DPL + i;
-        if (d < Dv) acc_s[(warp * R + r) * Dv + d] = acc[r][i];
+      for (int i2 = 0; i2 < DPL; ++i2) {
+        const int d = lane * DPL + i2;
+        if (d < Dv) acc_s[(warp * R + r) * Dv + d] = acc[r][i2];
       }
     }
   }
   __syncthreads();
+  const bool direct = n_live <= 1;
+  const int stride = Dv + 2;     // a partial row: acc[0, Dv), m, l
+  const long long split_stride = (long long)gridDim.x * R * stride;
+  float* mine = direct ? nullptr : part + ((long long)split * gridDim.x + bg) * R * stride;
   for (int e = threadIdx.x; e < R * Dv; e += kThreads) {
     const int r = e / Dv, d = e % Dv;
     float mx = kNeg;
@@ -260,24 +438,69 @@ __global__ void __launch_bounds__(kThreads)
       den += l_s[w * R + r] * c;
       num += acc_s[(w * R + r) * Dv + d] * c;
     }
+    if (direct) {
+      const int s = r / Qh, qh = r % Qh;
+      out[((((long long)b * S + s) * G + g) * Qh + qh) * Dv + d] =
+          Elem<T>::from_float(num / fmaxf(den, 1e-30f));
+    } else {
+      mine[r * stride + d] = num;
+      if (d == 0) {
+        mine[r * stride + Dv] = mx;
+        mine[r * stride + Dv + 1] = den;
+      }
+    }
+  }
+  if (direct) return;
+
+  // the last live block of (b, g) to arrive merges the partials in split order
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) *last_s = atomicAdd(counters + bg, 1) == n_live - 1;
+  __syncthreads();
+  if (!*last_s) return;
+  __threadfence();
+  const float* first = part + (long long)bg * R * stride;
+  for (int e = threadIdx.x; e < R * Dv; e += kThreads) {
+    const int r = e / Dv, d = e % Dv;
+    const float* pr = first + r * stride;
+    float mx = kNeg;
+    for (int j = 0; j < n_live; ++j) mx = fmaxf(mx, __ldcg(pr + j * split_stride + Dv));
+    float den = 0.f, num = 0.f;
+    for (int j = 0; j < n_live; ++j) {
+      const float* pj = pr + j * split_stride;
+      const float c = expf(__ldcg(pj + Dv) - mx);
+      den += __ldcg(pj + Dv + 1) * c;
+      num += __ldcg(pj + d) * c;
+    }
     const int s = r / Qh, qh = r % Qh;
     out[((((long long)b * S + s) * G + g) * Qh + qh) * Dv + d] =
         Elem<T>::from_float(num / fmaxf(den, 1e-30f));
   }
+  if (threadIdx.x == 0) counters[bg] = 0;   // leave the counter as the caller gave it
 }
 
 template <typename T, int RMAX>
 cudaError_t launch_rows(const void* q, const void* k, const void* v, const int* lengths,
-                        const int* tables, void* out, int B, int S, int G, int Qh, int Dk,
-                        int Dv, int page_size, int n_tiles, float scale, cudaStream_t stream) {
+                        const int* tables, void* out, float* part, int* counters, int B, int S,
+                        int G, int Qh, int Dk, int Dv, int page_size, int n_tiles, int n_split,
+                        int split_len, float scale, cudaStream_t stream) {
   const int R = S * Qh;
-  const size_t smem = sizeof(float) * ((size_t)R * Dk + 2 * kWarps * R + (size_t)kWarps * R * Dv);
-  const dim3 grid(B * G);
+  const size_t smem = plain_smem_bytes<T>(R, Dk, Dv);
+  const dim3 grid(B * G, n_split);
   const int dpl = (Dv + 31) / 32;
-#define REPRO_LAUNCH(DPL_)                                                                       \
-  decode_attention_kernel<T, RMAX, DPL_><<<grid, kThreads, smem, stream>>>(                      \
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), lengths,     \
-      tables, static_cast<T*>(out), S, G, Qh, Dk, Dv, page_size, n_tiles, scale)
+#define REPRO_LAUNCH(DPL_)                                                                     \
+  do {                                                                                         \
+    auto kern = decode_attention_kernel<T, RMAX, DPL_>;                                        \
+    if (smem > 48 * 1024) {                                                                    \
+      const cudaError_t e =                                                                    \
+          cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem); \
+      if (e != cudaSuccess) return e;                                                          \
+    }                                                                                          \
+    kern<<<grid, kThreads, smem, stream>>>(                                                    \
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), lengths, \
+        tables, static_cast<T*>(out), part, counters, S, G, Qh, Dk, Dv, page_size, n_tiles,    \
+        split_len, scale);                                                                     \
+  } while (0)
   if (dpl <= 1) {
     REPRO_LAUNCH(1);
   } else if (dpl <= 2) {
@@ -293,21 +516,28 @@ cudaError_t launch_rows(const void* q, const void* k, const void* v, const int* 
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* lengths,
-                   const int* tables, void* out, int B, int S, int G, int Qh, int Dk, int Dv,
-                   int page_size, int n_tiles, float scale, cudaStream_t stream) {
+                   const int* tables, void* out, float* part, int* counters, int B, int S, int G,
+                   int Qh, int Dk, int Dv, int page_size, int n_tiles, int n_split, int split_len,
+                   float scale, cudaStream_t stream) {
   const int R = S * Qh;
+  const long long cap = (long long)n_tiles * page_size;
+  if (Dk % 8 != 0 || Dv % 8 != 0 || Dk <= 0 || Dv <= 0 || Dk > 128 || Dv > 128 ||
+      page_size <= 0 || n_tiles < 0 || n_split <= 0 || split_len <= 0 ||
+      (long long)n_split * split_len < cap ||
+      (n_split > 1 && (part == nullptr || counters == nullptr)) ||
+      (tables != nullptr && (split_len - 1) / page_size + 2 > kMaxSplitPages))
+    return cudaErrorInvalidValue;
   if (R <= 1)
-    return launch_rows<T, 1>(q, k, v, lengths, tables, out, B, S, G, Qh, Dk, Dv, page_size,
-                             n_tiles, scale, stream);
+    return launch_rows<T, 1>(q, k, v, lengths, tables, out, part, counters, B, S, G, Qh, Dk, Dv,
+                             page_size, n_tiles, n_split, split_len, scale, stream);
   if (R <= 4)
-    return launch_rows<T, 4>(q, k, v, lengths, tables, out, B, S, G, Qh, Dk, Dv, page_size,
-                             n_tiles, scale, stream);
+    return launch_rows<T, 4>(q, k, v, lengths, tables, out, part, counters, B, S, G, Qh, Dk, Dv,
+                             page_size, n_tiles, n_split, split_len, scale, stream);
   if (R <= 16)
-    return launch_rows<T, 16>(q, k, v, lengths, tables, out, B, S, G, Qh, Dk, Dv, page_size,
-                              n_tiles, scale, stream);
+    return launch_rows<T, 16>(q, k, v, lengths, tables, out, part, counters, B, S, G, Qh, Dk,
+                              Dv, page_size, n_tiles, n_split, split_len, scale, stream);
   return cudaErrorInvalidValue;
 }
-
 // -- split score (absorbed MLA) ---------------------------------------------------
 
 constexpr int kSplitWarps = 8;               // query rows a block, one a warp
@@ -561,26 +791,40 @@ cudaError_t launch_split(const void* q, const void* q2, const void* k, const voi
 // q (B, S, G, Qh, Dk) and out (B, S, G, Qh, Dv) contiguous; lengths (B,) int32.
 // Paged: k (n_pages, page_size, G, Dk), v likewise with Dv, tables (B, n_tiles)
 // int32.  Contiguous: tables == NULL, k (B, T, G, Dk) with page_size = T and
-// n_tiles = 1.  Returns the launch's cudaGetLastError() code.
+// n_tiles = 1.  Keys split n_split ways, split_len each (n_split * split_len
+// >= n_tiles * page_size; paged, one split spans at most 128 table entries).
+// With n_split > 1, part is float32 scratch of n_split * B * G * S * Qh *
+// (Dv + 2) and counters B * G int32 zeros, left zero again; with n_split == 1
+// both may be NULL.  Returns the launch's cudaGetLastError() code.
 extern "C" int repro_decode_attention(int dtype, const void* q, const void* k, const void* v,
-                                      const void* lengths, const void* tables, void* out, int B,
-                                      int S, int G, int Qh, int Dk, int Dv, int page_size,
-                                      int n_tiles, float scale, void* stream) {
+                                      const void* lengths, const void* tables, void* out,
+                                      void* part, void* counters, int B, int S, int G, int Qh,
+                                      int Dk, int Dv, int page_size, int n_tiles, int n_split,
+                                      int split_len, float scale, void* stream) {
   if (B <= 0 || G <= 0 || S <= 0 || Qh <= 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* len = static_cast<const int*>(lengths);
   const int* tbl = static_cast<const int*>(tables);
+  float* prt = static_cast<float*>(part);
+  int* cnt = static_cast<int*>(counters);
   cudaError_t err;
   if (dtype == 0) {
-    err = launch<float>(q, k, v, len, tbl, out, B, S, G, Qh, Dk, Dv, page_size, n_tiles, scale,
-                        st);
+    err = launch<float>(q, k, v, len, tbl, out, prt, cnt, B, S, G, Qh, Dk, Dv, page_size, n_tiles,
+                        n_split, split_len, scale, st);
   } else if (dtype == 1) {
-    err = launch<__nv_bfloat16>(q, k, v, len, tbl, out, B, S, G, Qh, Dk, Dv, page_size, n_tiles,
-                                scale, st);
+    err = launch<__nv_bfloat16>(q, k, v, len, tbl, out, prt, cnt, B, S, G, Qh, Dk, Dv, page_size,
+                                n_tiles, n_split, split_len, scale, st);
   } else {
     err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+// Dynamic shared memory, in bytes, of one block of repro_decode_attention at
+// these shapes (dtype as above; R = S * Qh query rows).
+extern "C" long long repro_decode_attention_smem(int dtype, int R, int Dk, int Dv) {
+  return static_cast<long long>(dtype == 0 ? plain_smem_bytes<float>(R, Dk, Dv)
+                                           : plain_smem_bytes<__nv_bfloat16>(R, Dk, Dv));
 }
 
 // Split score of absorbed MLA; dtype as above, shared by q, q2, k, k2 and out.

@@ -10,13 +10,19 @@ import math
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.decode_attention.ref import lengths_vector
+from repro_torch.kernels.decode_attention.ref import (key_split_plan,
+                                                      lengths_vector)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_ROWS = 16       # S * Qh query rows one block holds
 MAX_HEAD_DIM = 128
 MAX_LATENT = 512    # split score: latent width (Dk = Dv) a warp holds
 MAX_SPLIT_DIM = 64  # split score: width of the second (rope) term
+# (device index, stream) -> int32 counters of the plain-score kernel's split
+# merge: allocated zero, and every launch leaves them zero again, so a call
+# needs no memset kernel of its own.  One buffer a stream: launches on one
+# stream never overlap.
+_COUNTERS: dict = {}
 
 
 def _check_operands(name, q, *kv):
@@ -56,7 +62,12 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           block_tables=None) -> torch.Tensor:
     """q (B,S,G,Qh,Dk); k (B,T,G,Dk) / v (B,T,G,Dv), or with
     ``block_tables`` (B, max_pages) int32 pools (n_pages, ps, G, D);
-    lengths () or (B,) -> (B,S,G,Qh,Dv) in q's dtype, on the card."""
+    lengths () or (B,) -> (B,S,G,Qh,Dv) in q's dtype, on the card.
+
+    The keys are split across blocks by ``key_split_plan``, from shapes
+    alone; with more than one split the call allocates float32 scratch for
+    the splits' partial states, and takes one int32 counter a (row, group)
+    from ``_counters``.  It reads nothing back to the host."""
     _check_operands("decode_attention_cuda", q, k, v)
     if q.dim() != 5 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("decode_attention_cuda: q (B,S,G,Qh,D) and k/v "
@@ -67,10 +78,10 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or k.shape[3] != dk:
         raise ValueError(f"decode_attention_cuda: shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)} disagree")
-    if dk % 8 or dk > MAX_HEAD_DIM or dv > MAX_HEAD_DIM \
+    if dk % 8 or dv % 8 or dk > MAX_HEAD_DIM or dv > MAX_HEAD_DIM \
             or s_win * qh > MAX_ROWS:
         raise ValueError(
-            f"decode_attention_cuda: needs Dk % 8 == 0, Dk, Dv <= "
+            f"decode_attention_cuda: needs Dk % 8 == Dv % 8 == 0, Dk, Dv <= "
             f"{MAX_HEAD_DIM} and S*Qh <= {MAX_ROWS}; got Dk={dk} Dv={dv} "
             f"S*Qh={s_win * qh}")
     page_size, n_tiles, tbl = _table("decode_attention_cuda", block_tables,
@@ -80,18 +91,37 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dev = q.device
     ln = lengths_vector(lengths, b, dev)
     out = torch.empty((b, s_win, g, qh, dv), dtype=q.dtype, device=dev)
+    n_split, split_len = key_split_plan(b, g, page_size, n_tiles,
+                                        tbl is not None)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    part = counters = None
+    if n_split > 1:
+        part = torch.empty((n_split, b * g, s_win * qh, dv + 2),
+                           dtype=torch.float32, device=dev)
+        counters = _counters(dev, stream, b * g)
     lib = build.library()
     rc = lib.repro_decode_attention(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         ln.data_ptr(), None if tbl is None else tbl.data_ptr(),
-        out.data_ptr(), b, s_win, g, qh, dk, dv, page_size, n_tiles,
-        float(scale), torch.cuda.current_stream(dev).cuda_stream)
+        out.data_ptr(), None if part is None else part.data_ptr(),
+        None if counters is None else counters.data_ptr(), b, s_win, g, qh,
+        dk, dv, page_size, n_tiles, n_split, split_len, float(scale), stream)
     build.check(rc, "decode_attention")
     decode_attention_cuda.launches += 1
     return out
 
 
 decode_attention_cuda.launches = 0
+
+
+def _counters(dev, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` zero int32 counters for launches on ``stream``."""
+    key = (dev.index, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros((max(n, 1024),), dtype=torch.int32, device=dev)
+        _COUNTERS[key] = buf
+    return buf
 
 
 def decode_attention_split_cuda(q: torch.Tensor, k: torch.Tensor,

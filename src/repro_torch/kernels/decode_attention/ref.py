@@ -1,4 +1,7 @@
-"""Plain PyTorch version of the ragged, paged decode-attention kernel."""
+"""Plain PyTorch version of the ragged, paged decode-attention kernel, and
+of the plain-score kernel's key-split algorithm: the host's choice of the
+split (``key_split_plan``), the per-split partial states
+(``key_split_partials``) and their merge (``merge_key_splits``)."""
 from __future__ import annotations
 
 import math
@@ -6,6 +9,9 @@ import math
 import torch
 
 NEG = -1e30
+TILE_KEYS = 64          # keys the plain-score kernel stages a step
+SPLIT_BLOCKS = 528      # blocks a call aims for: 4 on each of an H100's 132 SMs
+MAX_SPLIT_PAGES = 128   # table entries one split may span (held in shared memory)
 
 
 def gather_pages(pool: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:
@@ -66,3 +72,75 @@ def decode_attention_ref(q, k, v, lengths, scale=None, q2=None, k2=None,
     p = p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
     out = torch.einsum("bsgqt,btgd->bsgqd", p, v.float()).to(q.dtype)
     return out[:, 0] if squeeze else out
+
+
+def key_split_plan(b: int, g: int, page_size: int, n_tiles: int,
+                   paged: bool) -> tuple:
+    """(n_split, split_len): how the plain-score kernel splits a row's key
+    capacity ``n_tiles * page_size`` (contiguous: T, one page) across
+    blocks, from shapes alone -- never from the lengths, so choosing it
+    reads nothing back from the card.  Aims for ``SPLIT_BLOCKS`` blocks over
+    the ``b * g`` (row, group) pairs; a split is a whole number of
+    ``TILE_KEYS`` tiles, and in paged mode spans at most ``MAX_SPLIT_PAGES``
+    table entries."""
+    cap = max(1, page_size * n_tiles)
+    tiles = -(-cap // TILE_KEYS)
+    n_split = min(max(1, -(-SPLIT_BLOCKS // max(1, b * g))), tiles)
+    split_len = -(-tiles // n_split) * TILE_KEYS
+    if paged:
+        # pages a window of split_len keys can span: (split_len-1)//ps + 2
+        split_len = min(split_len, max(
+            TILE_KEYS,
+            (MAX_SPLIT_PAGES - 1) * page_size // TILE_KEYS * TILE_KEYS))
+    return -(-cap // split_len), split_len
+
+
+def key_split_partials(q, k, v, lengths, n_split: int, split_len: int,
+                       scale=None, block_tables=None):
+    """The kernel's first pass in plain PyTorch: for each split j, the
+    online-softmax state of every query row over keys [j * split_len,
+    (j + 1) * split_len) below the row's frontier.
+
+    q (B,S,G,Qh,Dk); k/v as ``decode_attention_ref`` takes them ->
+    (m, l, acc) in float32: m and l (n_split,B,S,G,Qh), acc
+    (n_split,B,S,G,Qh,Dv); m is the split's largest score (NEG where the
+    row sees no key of the split), l the sum of exp(score - m) and acc the
+    unnormalised exp(score - m) @ v.  A split that holds no visible key
+    gives the empty state (NEG, 0, 0)."""
+    if block_tables is not None:
+        k = gather_pages(k, block_tables)
+        v = gather_pages(v, block_tables)
+    b, s_win, g, qh, dk = q.shape
+    t = k.shape[1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(dk)
+    ln = lengths_vector(lengths, b, q.device)
+    limit = ln[:, None] + torch.arange(s_win, dtype=torch.int32,
+                                       device=q.device)            # (B,S)
+    ms, ls, accs = [], [], []
+    for j in range(n_split):
+        lo, hi = j * split_len, min((j + 1) * split_len, t)
+        pos = torch.arange(lo, max(lo, hi), device=q.device)
+        sc = torch.einsum("bsgqd,btgd->bsgqt", q.float(),
+                          k[:, lo:hi].float()) * scale
+        vmask = (pos[None, None, :] < limit[:, :, None])[:, :, None, None]
+        sc = torch.where(vmask, sc, torch.full_like(sc, NEG))
+        m = sc.amax(dim=-1) if hi > lo else torch.full(
+            (b, s_win, g, qh), NEG, device=q.device)
+        p = torch.where(vmask, torch.exp(sc - m[..., None]),
+                        torch.zeros_like(sc))
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bsgqt,btgd->bsgqd", p, v[:, lo:hi].float()))
+    return torch.stack(ms), torch.stack(ls), torch.stack(accs)
+
+
+def merge_key_splits(m, l, acc, dtype):
+    """The kernel's merge: each split's state rescaled by exp(m_j - m) to
+    the rows' largest score m, summed in split order, and normalised;
+    rows that see no key give exactly 0."""
+    top = m.amax(dim=0)
+    w = torch.exp(m - top)
+    den = (l * w).sum(dim=0)
+    num = (acc * w[..., None]).sum(dim=0)
+    return (num / torch.clamp(den, min=1e-30)[..., None]).to(dtype)

@@ -95,6 +95,93 @@ def test_decode_attention_kernel_matches_plain(cuda_device, dtype, tol,
         decode_attention_ref(q_d, kd, vd, ln_d).float(), atol=tol, rtol=rtol)
 
 
+# Long rows over 64-key pages at stablelm's widths (G=32, D=64), and short
+# pages at small widths, with lengths that leave splits of the key-split
+# plan empty (0, 5), and that fall on split and page boundaries (64, 128)
+# or one short of them.
+LONG_CASES = {
+    "1000": dict(lens=[1000, 0, 128, 999], g=32, d=64, ps=64),
+    "4096": dict(lens=[4096, 5, 2048, 4095], g=32, d=64, ps=64),
+    "pages8": dict(lens=[0, 64, 129, 511], g=2, d=32, ps=8),
+}
+
+
+def _long_case(case, s_win, qh, device):
+    """A clean case on the card, and the same pools with NaN in every page
+    no row owns (the trash page included)."""
+    c = LONG_CASES[case]
+    mp = -(-(max(c["lens"]) + s_win - 1) // c["ps"])
+    q, kp, vp, ln, tbl = paged_case(s_win, seed=60 + s_win + len(case),
+                                    lens=c["lens"], qh=qh, g=c["g"],
+                                    d=c["d"], ps=c["ps"], mp=mp)
+    foreign = np.ones(kp.shape[0], bool)
+    foreign[tbl[tbl > 0]] = False
+    kn, vn = kp.copy(), vp.copy()
+    kn[foreign] = np.nan
+    vn[foreign] = np.nan
+    return [torch.from_numpy(x).to(device)
+            for x in (q, kp, vp, kn, vn, ln, tbl)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("s_win,qh", [(1, 1), (3, 2)])
+@pytest.mark.parametrize("case", sorted(LONG_CASES))
+def test_decode_attention_kernel_matches_plain_long_rows(cuda_device, dtype,
+                                                         tol, s_win, qh,
+                                                         case):
+    """Keys split across blocks: paged (NaN-poisoned pools bitwise equal to
+    clean ones), two calls bitwise equal, rows that see no key exactly 0,
+    and contiguous over the gathered stripes."""
+    q, kp, vp, kn, vn, ln, tbl = _long_case(case, s_win, qh, cuda_device)
+    q, kp, vp, kn, vn = (x.to(dtype) for x in (q, kp, vp, kn, vn))
+    before = attn_kernel.decode_attention_cuda.launches
+    got = decode_attention(q, kn, vn, ln, block_tables=tbl)
+    assert attn_kernel.decode_attention_cuda.launches == before + 1
+    want = decode_attention_ref(q, kp, vp, ln, block_tables=tbl)
+    rtol = 0 if dtype == torch.float32 else tol
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=rtol)
+    assert torch.equal(got, decode_attention(q, kn, vn, ln,
+                                             block_tables=tbl))
+    assert torch.equal(got, decode_attention(q, kp, vp, ln,
+                                             block_tables=tbl))
+    empty = ln == 0
+    assert torch.all(got[empty][:, 0] == 0)
+    for counters in attn_kernel._COUNTERS.values():  # left zero for the next
+        assert torch.count_nonzero(counters).item() == 0
+    kd = gather_pages(kp, tbl).contiguous()
+    vd = gather_pages(vp, tbl).contiguous()
+    got_c = decode_attention(q, kd, vd, ln)
+    torch.testing.assert_close(
+        got_c.float(), decode_attention_ref(q, kd, vd, ln).float(), atol=tol,
+        rtol=rtol)
+    assert torch.equal(got_c, decode_attention(q, kd, vd, ln))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [True, False])
+def test_decode_attention_kernel_reads_nothing_to_host(cuda_device, paged):
+    """With lengths and tables on the card, a call (keys split across
+    blocks, scratch allocated) makes no host sync."""
+    q, kp, vp, _, _, ln, tbl = _long_case("1000", 1, 1, cuda_device)
+    q, kp, vp = (x.to(torch.bfloat16) for x in (q, kp, vp))
+    if not paged:
+        kp = gather_pages(kp, tbl).contiguous()
+        vp = gather_pages(vp, tbl).contiguous()
+        tbl = None
+    decode_attention(q, kp, vp, ln, block_tables=tbl)   # build and load
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = decode_attention(q, kp, vp, ln, block_tables=tbl)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = decode_attention_ref(q, kp, vp, ln, block_tables=tbl)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
 @pytest.mark.cuda
 def test_paged_decode_kernel_route_matches_plain_route(cuda_device):
     """A small float32 model decodes ragged rows into a paged pool through

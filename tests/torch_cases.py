@@ -31,19 +31,22 @@ def mask_case(b, v, seed):
     return logits, words
 
 
-def paged_case(s_win, seed, garbage=1e3):
-    """q (B,S,G,QH,D), k/v pools (1 + B*MP, PS, G, D), lengths (B,) and a
-    block table (B, MP): each row's pages are a shuffled draw, vacancies
-    -1; pages no row owns (and the trash page) hold ``garbage``."""
+def paged_case(s_win, seed, garbage=1e3, lens=LENS, qh=QH, g=G, d=D, ps=PS,
+               mp=MP):
+    """q (B,S,g,qh,d), k/v pools (1 + B*mp, ps, g, d), lengths (B,) and a
+    block table (B, mp), B = len(lens): each row's pages are a shuffled
+    draw, vacancies -1; pages no row owns (and the trash page) hold
+    ``garbage``."""
     rng = np.random.default_rng(seed)
-    n_pages = 1 + B * MP
-    kp = rng.normal(size=(n_pages, PS, G, D)).astype(np.float32)
-    vp = rng.normal(size=(n_pages, PS, G, D)).astype(np.float32)
+    b = len(lens)
+    n_pages = 1 + b * mp
+    kp = rng.normal(size=(n_pages, ps, g, d)).astype(np.float32)
+    vp = rng.normal(size=(n_pages, ps, g, d)).astype(np.float32)
     perm = list(rng.permutation(np.arange(1, n_pages)))
-    tbl = np.full((B, MP), -1, np.int32)
+    tbl = np.full((b, mp), -1, np.int32)
     owned = []
-    for i, ln in enumerate(LENS):
-        n = -(-(ln + s_win - 1) // PS)
+    for i, ln in enumerate(lens):
+        n = -(-(ln + s_win - 1) // ps)
         tbl[i, :n] = perm[:n]
         owned += perm[:n]
         del perm[:n]
@@ -51,8 +54,8 @@ def paged_case(s_win, seed, garbage=1e3):
     foreign[owned] = False
     kp[foreign] = garbage
     vp[foreign] = -garbage
-    q = rng.normal(size=(B, s_win, G, QH, D)).astype(np.float32)
-    return q, kp, vp, np.asarray(LENS, np.int32), tbl
+    q = rng.normal(size=(b, s_win, g, qh, d)).astype(np.float32)
+    return q, kp, vp, np.asarray(lens, np.int32), tbl
 
 
 def mamba_inputs(b, s, d, n, seed):
