@@ -15,14 +15,18 @@ non-zero without the final result line):
     the packed form of the same mask (bitwise);
  3. decode attention, kernel vs plain version on the card: paged
     (shuffled tables, -1 vacancies, foreign pages poisoned with NaN) and
-    contiguous, S in {1, 3}, float32 (atol 1e-5: only the summation order
-    differs) and bfloat16 (atol = rtol = 2e-2 in float32: about one bf16
-    ulp of the output); timed at B=4 with 1000 keys a row (the pool warm in
-    the L2) and 4096 (a pool 2.7 times the L2), each with the key split it
-    chose; and the split-score kernel of absorbed MLA at
+    contiguous, (S, Qh) in {(1, 1), (3, 1), (3, 2), (9, 7)} (63 query rows
+    at the last, in tiles of 16), float32 (atol 1e-5: only the summation
+    order differs) and bfloat16 (atol = rtol = 2e-2 in float32: about one
+    bf16 ulp of the output); timed at B=4 with 1000 keys a row (the pool
+    warm in the L2) and 4096 (a pool 2.7 times the L2), each with the key
+    split it chose; and the split-score kernel of absorbed MLA at
     deepseek-v3's width (128 heads, latent 512, rope 64), paged and
-    contiguous, S in {1, 2}, float32 (atol = rtol = 1e-4: 576-long dot
-    products in another order) and bfloat16 (2e-2), NaN-poisoned pools;
+    contiguous, S in {1, 2, 9}, float32 (CUDA cores; atol = rtol = 1e-4:
+    576-long dot products in another order) and bfloat16 (tensor cores;
+    2e-2), NaN-poisoned pools bitwise equal, two calls bitwise equal; timed
+    in bfloat16 at B=4 with 1000 keys a row and 16384 (a 75.5 MB pool, 1.5
+    times the L2), each with the key split it chose;
  4. the Mamba1 selective scan and the Mamba2 SSD scan, kernel vs plain
     version on the card in float32 (atol = rtol = 1e-4: the kernels walk
     the recurrence step by step, the plain SSD scan is chunked, and the
@@ -165,7 +169,8 @@ def phase_env(torch):
         if "registers" in line or "spill" in line or line.startswith("=="):
             log(f"[build] {line.strip()}")
     for fn, info in _ptxas_by_function(build.build_log).items():
-        if "decode_attention_kernel" in fn:
+        if "decode_attention_kernel" in fn \
+                or "decode_attention_split_mma_kernel" in fn:
             log(f"[build] {_demangle(fn)}: {info}")
     return card
 
@@ -344,7 +349,7 @@ def phase_decode_attention(torch):
     gen.manual_seed(2)
     lens = [0, 1, 63, 64, 65, 1000]
     for dtype in (torch.float32, torch.bfloat16):
-        for s_win, qh in ((1, 1), (3, 1), (3, 2)):
+        for s_win, qh in ((1, 1), (3, 1), (3, 2), (9, 7)):
             gen.manual_seed(3)
             clean = _paged_case(torch, gen, dtype, s_win, qh, lens, False)
             gen.manual_seed(3)
@@ -412,13 +417,13 @@ def _plan_text(q, kp, tbl):
 
 
 def _split_case(torch, gen, dtype, s_win, lens, poison, h=128, r=512,
-                d2=64):
+                d2=64, mp=20):
     """Absorbed-MLA split-score inputs at deepseek-v3's width: q_lat
     (B,S,1,h,r), q_rope (B,S,1,h,d2), a latent pool (n_pages, 64, 1, r) --
     key and value -- and a rope pool (n_pages, 64, 1, d2), lengths and a
-    shuffled table with -1 vacancies; pages no row owns poisoned with NaN
-    when ``poison``."""
-    b, ps, mp = len(lens), PAGE_SIZE, 20
+    shuffled table of ``mp`` entries a row with -1 vacancies; pages no row
+    owns poisoned with NaN when ``poison``."""
+    b, ps = len(lens), PAGE_SIZE
     n_pages = 1 + b * mp
     lat = torch.randn((n_pages, ps, 1, r), generator=gen, device="cuda")
     rp = torch.randn((n_pages, ps, 1, d2), generator=gen, device="cuda")
@@ -452,10 +457,30 @@ def _check_split(torch, got, want, dtype, what):
     return err
 
 
+def _split_plan_text(q, q2, lat, tbl):
+    """The key split the bfloat16 split-score kernel takes at these shapes,
+    and its dynamic shared memory a block."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.decode_attention.ref import (SCORE_ROWS,
+                                                          split_score_plan)
+    b, s_win, g, qh, r = q.shape
+    n_tiles = 1 if tbl is None else tbl.shape[1]
+    n_split, split_len = split_score_plan(b, g, s_win * qh, lat.shape[1],
+                                          n_tiles, tbl is not None)
+    tiles = -(-(s_win * qh) // SCORE_ROWS)
+    smem = build.library().repro_decode_attention_split_smem(
+        r, q2.shape[-1])
+    rows = n_split * b * g * s_win * qh
+    scratch = 0 if n_split == 1 else rows * (r + 4) * 4
+    return (f"n_split {n_split} x {split_len} keys, grid ({tiles}, {n_split}, "
+            f"{b * g}) of 512 threads, {smem} B dynamic smem a block, "
+            f"scratch {scratch / 1e6:.2f} MB")
+
+
 def phase_split_attention(torch):
     """The split-score kernel against its plain version at deepseek-v3's
-    width; returns {"long": (ms, plain ms, library ms, bound ms)} at B=4,
-    1000 keys a row, bf16."""
+    width; returns {"long": ..., "long_cold": ...} (the shape, ms, plain
+    ms, library ms and bound ms) at B=4, 1000 and 16384 keys a row, bf16."""
     from repro_torch.kernels.decode_attention.kernel import \
         decode_attention_split_cuda as split
     from repro_torch.kernels.decode_attention.ref import (
@@ -464,7 +489,7 @@ def phase_split_attention(torch):
     scale = 1.0 / math.sqrt(192)
     lens = [0, 1, 63, 64, 65, 1000]
     for dtype in (torch.float32, torch.bfloat16):
-        for s_win in (1, 2):
+        for s_win in (1, 2, 9):
             gen.manual_seed(6)
             q, q2, lat, rp, ln, tbl = _split_case(torch, gen, dtype, s_win,
                                                   lens, False)
@@ -484,6 +509,10 @@ def phase_split_attention(torch):
             if not torch.equal(out, out_dirty):
                 raise AssertionError("split-score attention: NaN in foreign "
                                      "pages changed the output")
+            if not torch.equal(out, split(q, lat, lat, q2, rp, ln,
+                                          scale=scale, block_tables=tbl)):
+                raise AssertionError("split-score attention: two calls "
+                                     "differ")
             if out[0, 0].abs().max().item() != 0.0:
                 raise AssertionError("split-score attention: empty row not 0")
             kd = gather_pages(lat, tbl).contiguous()
@@ -495,23 +524,33 @@ def phase_split_attention(torch):
             err_c = _check_split(torch, out_c, want_c, dtype,
                                  f"contiguous {name} S={s_win}")
             log(f"[split] {name} S={s_win} H=128 R=512 D2=64 lens={lens}: "
-                f"paged err {err:.2e}, poisoned pool bitwise equal, "
-                f"contiguous err {err_c:.2e}")
-    gen.manual_seed(7)
-    q, q2, lat, rp, ln, tbl = _split_case(torch, gen, torch.bfloat16, 1,
-                                          [1000] * 4, False)
-    k_ms = time_ms(torch, lambda: split(q, lat, lat, q2, rp, ln, scale=scale,
-                                        block_tables=tbl))
-    p_ms = time_ms(torch, lambda: decode_attention_ref(
-        q, lat, lat, ln, scale=scale, q2=q2, k2=rp, block_tables=tbl), n=10)
-    lib_ms = time_ms(torch, _split_sdpa_yardstick(torch, q, q2, lat, rp, ln,
-                                                  tbl, scale))
-    bnd, by = _split_bound(q, q2, lat, ln, tbl, "bfloat16")
-    log(f"[split] bf16 B=4 H=128 R=512 D2=64 1000 keys/row: kernel "
-        f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
-        f"{bnd:.5f} ms by {by}")
-    return {"long": (k_ms, p_ms, lib_ms, bnd),
-            "long_shape": "B=4 S=1 H=128 R=512 D2=64, 1000 keys a row, bf16"}
+                f"paged err {err:.2e}, poisoned pool bitwise equal, two calls "
+                f"bitwise equal, contiguous err {err_c:.2e}")
+    timed = {}
+    for what, keys, mp in (("long", 1000, 20), ("long_cold", 16384, 256)):
+        gen.manual_seed(7)
+        q, q2, lat, rp, ln, tbl = _split_case(torch, gen, torch.bfloat16, 1,
+                                              [keys] * 4, False, mp=mp)
+        k_ms = time_ms(torch, lambda: split(q, lat, lat, q2, rp, ln,
+                                            scale=scale, block_tables=tbl))
+        p_ms = time_ms(torch, lambda: decode_attention_ref(
+            q, lat, lat, ln, scale=scale, q2=q2, k2=rp, block_tables=tbl),
+            n=10)
+        lib_ms = time_ms(torch, _split_sdpa_yardstick(torch, q, q2, lat, rp,
+                                                      ln, tbl, scale), n=10)
+        bnd, by = _split_bound(q, q2, lat, ln, tbl, "bfloat16")
+        pool_mb = (lat.numel() + rp.numel()) * lat.element_size() / 1e6
+        shape = (f"B=4 S=1 H=128 R=512 D2=64 bf16, {keys} keys a row over "
+                 f"{PAGE_SIZE}-key pages, latent + rope pool {pool_mb:.1f} MB")
+        log(f"[split] {what}: {shape}: "
+            f"{_split_plan_text(q, q2, lat, tbl)}; "
+            f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
+            f"{lib_ms:.4f} ms, bound {bnd:.5f} ms by {by} "
+            f"({bnd / k_ms:.0%} of it)")
+        timed[what] = {"shape": shape, "ms": k_ms, "plain_ms": p_ms,
+                       "library_ms": lib_ms, "bound_ms": bnd}
+        del q, q2, lat, rp
+    return timed
 
 
 def _split_sdpa_yardstick(torch, q, q2, lat, rp, ln, tbl, scale):
@@ -1276,7 +1315,6 @@ def phase_kernels(torch, paths, scans, attn_long, split_long, bytes_long):
                                 block_tables=tbl)
     torch.cuda.synchronize()
     bnd, bnd_by = _split_bound(q, q2, lat, ln, tbl, "bfloat16")
-    k_long, p_long, l_long, b_long = split_long["long"]
     out.append({
         "name": "decode_attention_split", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -1287,7 +1325,8 @@ def phase_kernels(torch, paths, scans, attn_long, split_long, bytes_long):
                                     "deepseek-v3-671b inputs"),
         "shape": (f"q {tuple(q.shape)} q2 {tuple(q2.shape)} pools "
                   f"{tuple(lat.shape)} / {tuple(rp.shape)} lengths "
-                  f"{ln.tolist()} (deepseek-v3-671b, paged)"),
+                  f"{ln.tolist()} (deepseek-v3-671b, paged; "
+                  f"{_split_plan_text(q, q2, lat, tbl)})"),
         "ms": time_ms(torch, lambda: decode_attention_split_cuda(
             q, lat, lat, q2, rp, ln, scale=scale, block_tables=tbl)),
         "plain_ms": time_ms(torch, lambda: decode_attention_ref(
@@ -1295,9 +1334,7 @@ def phase_kernels(torch, paths, scans, attn_long, split_long, bytes_long):
         "bound_ms": bnd, "bound_by": bnd_by,
         "library_ms": time_ms(torch, _split_sdpa_yardstick(
             torch, q, q2, lat, rp, ln, tbl, scale)),
-        "long": {"shape": split_long["long_shape"], "ms": k_long,
-                 "plain_ms": p_long, "library_ms": l_long,
-                 "bound_ms": b_long}})
+        "long": split_long["long"], "long_cold": split_long["long_cold"]})
 
     # the byte mask, at a mid-run tick of the op path's replay
     n, by = launches("masked_argmax_bytes")

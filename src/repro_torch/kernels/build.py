@@ -90,34 +90,41 @@ def _build() -> pathlib.Path:
     return lib
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` with the argument and result types of the kernels' C entry
+    points declared."""
+    lib.repro_masked_argmax_packed.argtypes = [
+        _P, ctypes.c_longlong, _P, _I, _I, _I, _P, _P, _P]
+    lib.repro_masked_argmax_packed.restype = _I
+    lib.repro_decode_attention.argtypes = [
+        _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+        _I, _I, _I, ctypes.c_float, _P]
+    lib.repro_decode_attention.restype = _I
+    lib.repro_decode_attention_smem.argtypes = [_I, _I, _I, _I]
+    lib.repro_decode_attention_smem.restype = ctypes.c_longlong
+    lib.repro_decode_attention_split.argtypes = [
+        _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+        _I, _I, _I, ctypes.c_float, _P]
+    lib.repro_decode_attention_split.restype = _I
+    lib.repro_decode_attention_split_smem.argtypes = [_I, _I]
+    lib.repro_decode_attention_split_smem.restype = ctypes.c_longlong
+    lib.repro_masked_argmax_bytes.argtypes = [
+        _P, ctypes.c_longlong, _P, ctypes.c_longlong, _I, _I, _P, _P, _P]
+    lib.repro_masked_argmax_bytes.restype = _I
+    lib.repro_mamba_scan.argtypes = [_P] * 8 + [_I] * 4 + [_P]
+    lib.repro_mamba_scan.restype = _I
+    lib.repro_ssd_scan.argtypes = [_P] * 8 + [_I] * 5 + [_P]
+    lib.repro_ssd_scan.restype = _I
+    lib.repro_cuda_error_string.argtypes = [_I]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if this checkout has none."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(_build()))
-        lib.repro_masked_argmax_packed.argtypes = [
-            _P, ctypes.c_longlong, _P, _I, _I, _I, _P, _P, _P]
-        lib.repro_masked_argmax_packed.restype = _I
-        lib.repro_decode_attention.argtypes = [
-            _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-            _I, _I, _I, ctypes.c_float, _P]
-        lib.repro_decode_attention.restype = _I
-        lib.repro_decode_attention_smem.argtypes = [_I, _I, _I, _I]
-        lib.repro_decode_attention_smem.restype = ctypes.c_longlong
-        lib.repro_decode_attention_split.argtypes = [
-            _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-            ctypes.c_float, _P]
-        lib.repro_decode_attention_split.restype = _I
-        lib.repro_masked_argmax_bytes.argtypes = [
-            _P, ctypes.c_longlong, _P, ctypes.c_longlong, _I, _I, _P, _P, _P]
-        lib.repro_masked_argmax_bytes.restype = _I
-        lib.repro_mamba_scan.argtypes = [_P] * 8 + [_I] * 4 + [_P]
-        lib.repro_mamba_scan.restype = _I
-        lib.repro_ssd_scan.argtypes = [_P] * 8 + [_I] * 5 + [_P]
-        lib.repro_ssd_scan.restype = _I
-        lib.repro_cuda_error_string.argtypes = [_I]
-        lib.repro_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = bind(ctypes.CDLL(str(_build())))
     return _lib
 
 

@@ -10,8 +10,9 @@
 //   out[b, s, g, qh] = softmax_t(q . k_t * scale) @ v   over keys t < lengths[b] + s
 // Rows that see no key give exactly 0.  Paged mode reads key t of row b from
 // pool page max(block_tables[b, t / ps], 0) at offset t % ps; contiguous
-// mode reads it from k[b, t] (page size = T, one page per row).  S * Qh <= 16
-// query rows, Dk and Dv multiples of 8 and at most 128, float32 or bfloat16.
+// mode reads it from k[b, t] (page size = T, one page per row).  Any S * Qh
+// query rows, in tiles of 16; Dk and Dv multiples of 8 and at most 128,
+// float32 or bfloat16.
 //
 // What bounds it: bytes.  Per (row, group) it reads each visible key and value
 // once (2 * D elements a key), and does 4 * D flops per key and query row --
@@ -20,9 +21,10 @@
 // is about keeping enough bytes in flight to cover the memory's latency:
 //
 // - Keys split across blocks ("flash-decoding").  The grid is (B * G,
-//   n_split): block (b * G + g, j) takes keys [j * L, (j + 1) * L) of row b,
-//   group g.  The caller picks n_split and L from shapes alone (the batch, G
-//   and the key capacity n_tiles * page_size: key_split_plan in
+//   n_split, row tiles): block (b * G + g, j, i) takes keys [j * L, (j + 1) *
+//   L) of row b, group g, for query rows [16 i, 16 i + 16) of the window.
+//   The caller picks n_split and L from shapes alone (the batch, G and the
+//   key capacity n_tiles * page_size: key_split_plan in
 //   kernels/decode_attention/ref.py), never from the lengths, so a call reads
 //   nothing back to the host.  A block whose range lies wholly past its row's
 //   frontier lengths[b] + S - 1 exits at once and writes nothing.
@@ -42,40 +44,67 @@
 // - Merging the splits: a row whose frontier lies in its first split is
 //   written by that block directly.  Otherwise each live block writes its
 //   partial state (m, l and the unnormalised acc) to scratch, and the last
-//   block of (b, g) to arrive -- one atomic counter a (b, g) -- merges the
-//   live partials in split order, each rescaled by exp(m_j - m).  No float
-//   atomics: equal inputs give bitwise-equal outputs.
+//   block of (b, g, row tile) to arrive -- one atomic counter each -- merges
+//   the live partials in split order, each rescaled by exp(m_j - m).  No
+//   float atomics: equal inputs give bitwise-equal outputs.
 //
 // Split score (absorbed MLA).  The latent cache is both key and value:
 //   out[b, s, g, qh] = softmax_t((q . k_t + q2 . k2_t) * scale) @ k_t
 // with q (B, S, G, Qh, R), k the latent (R = kv_lora_rank, 512 at
 // deepseek-v3), q2/k2 the rope term (D2 = 64) and the same frontier, paging,
-// trash-page and empty-row rules as above.  At deepseek-v3's width one group
-// holds S * 128 query rows of 512 latent values: their accumulators alone
-// (128 x 512 float32 = 256 KB) exceed a block's shared memory, so the plain
-// kernel's "all rows of a group in one block" cannot hold them.
+// trash-page and empty-row rules as above.
 //
-// What bounds it: operations, on the CUDA cores.  Every key is scored
-// against every query head (R + D2 products) and accumulated into it (R
-// products): at 128 heads that is ~240 flops a key byte in bf16 -- close to
-// the card's bf16 tensor-core balance (~295 flops a byte), twelve times its
-// float32 CUDA-core balance (~20).  At B = 4 and 1000 keys a row: ~1.1 GFLOP
-// for ~4.6 MB.  This simple kernel runs on the CUDA cores; wgmma is the
-// lever for a later change.
+// What bounds it: operations, then bytes.  Every key is scored against every
+// query head (R + D2 products) and accumulated into it (R products): at 128
+// heads, B = 4 and 1000 keys a row that is ~1.11 GFLOP for ~5.7 MB, ~195
+// flops a byte -- near the card's bf16 tensor-core balance (~295) and ten
+// times its float32 CUDA-core balance.  On the CUDA cores the arithmetic
+// alone takes ~17 us; on the tensor cores ~1.1 us, under the ~1.7 us of the
+// bytes.  So bfloat16 runs on the tensor cores (decode_attention_split_mma_
+// kernel); float32 keeps a CUDA-core kernel (decode_attention_split_kernel),
+// since bf16 products cannot keep float32's accuracy.
 //
-// Design: grid (b * G + g, tile of 8 query rows); one warp a query row, so
-// each warp keeps one online softmax for the whole sequence and no merge is
-// needed.  A lane owns a fixed slice of the latent dims (16-byte vectors
-// (i * 32 + lane), so a warp reads a key's latent as one contiguous sweep)
-// and of the rope dims (i * 32 + lane): it keeps its slice of q, q2 and of
-// the R-wide accumulator in registers.  The block stages a chunk of 32 keys'
-// latent and rope rows in shared memory once for its 8 rows (zeros past the
-// frontier, so nothing beyond it is read), each warp forms the lane's
-// partial dot products for all 32 keys, and a butterfly reduce-scatter
-// (31 shuffles) leaves the full score of key j in lane j -- the lane-per-key
-// layout the online softmax wants.  The values are the staged latent rows
-// themselves: they are read from shared memory a second time, never from
-// device memory.
+// bfloat16 design:
+// - Grid (tile of 32 query rows of the S * Qh window, key split, b * G + g),
+//   blocks of 16 warps, one block an SM: the two m16 tiles of a block share
+//   every staged key, and the row tiles of one (split, b, g) are adjacent in
+//   launch order, so the keys they share come from the L2.  The key split is
+//   chosen on the host from shapes alone (split_score_plan in
+//   kernels/decode_attention/ref.py) to fill the card's 132 SMs in one wave;
+//   a split past its row's frontier exits at once.
+// - Both products on the tensor cores: mma.sync m16n8k16, bf16 operands and
+//   float32 accumulators.  The 8 warps of an m16 tile split the scores of a
+//   32-key tile as 2 key halves x 4 quarters of the R + D2 deep product: a
+//   warp keeps its quarter of the queries in registers as A fragments,
+//   loaded once (36 registers at deepseek-v3's width), and reads B from the
+//   staged keys by ldmatrix, two 8-key accumulators a k-step.  The quarters
+//   meet in shared memory; each warp then owns two rows' online softmax
+//   (base 2, the scale folded in; 16 lanes a row, two keys a lane) and
+//   writes the tile's probabilities in bf16 and each row's rescale.  P @ V:
+//   warp w of a tile owns latent columns [64 w, 64 w + 64) at R = 512 (eight
+//   16 x 8 accumulators), A = P by ldmatrix, B by ldmatrix.trans from the
+//   staged latent rows: the keys are the values, staged once.
+// - Key tiles (latent and rope rows) are staged by cp.async in a ring of
+//   four stages, three tiles in flight while one is multiplied.  Rows past the
+//   frontier are zero-filled (src-size 0), never read.  A staged row is
+//   padded by 16 bytes (1040 bytes a latent row, 144 a rope row), so the 8
+//   rows of an ldmatrix fall in distinct banks; a depth that is not a
+//   multiple of 16 is zero-padded in shared memory.  A block holds 176,000
+//   bytes of shared memory at deepseek-v3's width.
+// - Merging the splits: a row whose frontier lies in its first split is
+//   written by that block; otherwise each live block writes its (acc, m, l)
+//   to scratch, n_split * B * G * S * Qh * (R + 4) floats (1.06 MB a split at
+//   B = 4, 128 heads and R = 512), and a second kernel
+//   (decode_attention_split_combine_kernel), one block a query row, merges
+//   them in split order.  A merge by the last block to arrive, as the plain
+//   score does it, would make one block read 32 rows x (R + 4) floats of
+//   every live split (~0.5 MB at 8 splits) while the card idles.  No float
+//   atomics: equal inputs give bitwise-equal outputs.
+// - What bounds it on the card: not the bytes.  The operands of mma.sync pass
+//   through shared memory once a 16-row tile (ldmatrix), and the phases of a
+//   key tile (scores, softmax, P @ V) are separated by block barriers, so
+//   the tensor cores wait on both; wgmma (B read once for 64 rows, A from
+//   shared memory) and TMA are the levers for a later change.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -137,6 +166,7 @@ __device__ __forceinline__ float warp_sum(float x) {
 constexpr int kTileKeys = 64;                   // keys a stage holds
 constexpr int kWarpKeys = kTileKeys / kWarps;   // keys a warp scores, two lanes a key
 constexpr int kMaxSplitPages = kThreads;        // table entries one split may span
+constexpr int kRowTile = 16;                    // query rows a block holds
 
 // 16-byte asynchronous copy to shared memory; src-size 0 zero-fills the
 // destination and reads nothing from ``src``.
@@ -202,7 +232,7 @@ __host__ __device__ inline int key_row_bytes(int Dk) {
 
 // Dynamic shared memory of one block: two stages of K and V tiles (reused
 // for the warps' states at the end), the pool rows of two tiles' keys, the
-// query rows in float32, the split's table entries and one flag.  The
+// tile's query rows in float32, the split's table entries and one flag.  The
 // stages always cover the warps' states: at 16 query rows those take
 // 256 * (Dv + 2) bytes, the stages at least 256 * Dv + 4096.
 template <typename T>
@@ -212,8 +242,9 @@ __host__ __device__ inline size_t plain_smem_bytes(int R, int Dk, int Dv) {
          sizeof(int) * (kMaxSplitPages + 1);
 }
 
-// RMAX bounds the S * Qh query rows a block holds in registers; DPL is the
-// number of value elements each lane accumulates (Dv <= 32 * DPL).
+// RMAX bounds the query rows of a block's tile (at most kRowTile), held in
+// registers; DPL is the number of value elements each lane accumulates
+// (Dv <= 32 * DPL).
 template <typename T, int RMAX, int DPL>
 __global__ void __launch_bounds__(kThreads)
     decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -224,7 +255,9 @@ __global__ void __launch_bounds__(kThreads)
                             float scale) {
   constexpr int kVec = Elem<T>::kVec;
   extern __shared__ __align__(16) unsigned char plain_smem[];
-  const int R = S * Qh;
+  const int n_rows = S * Qh;                                // query rows of the window
+  const int r0 = blockIdx.z * kRowTile;                     // the tile's first
+  const int R = min(kRowTile, n_rows - r0);                 // and its count
   const int k_row = key_row_bytes<T>(Dk);
   const int v_row = Dv * static_cast<int>(sizeof(T));
   unsigned char* k_st = plain_smem;                         // (2, kTileKeys) rows of k_row
@@ -260,7 +293,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   for (int e = threadIdx.x; e < R * Dk; e += kThreads) {
     const int r = e / Dk, d = e % Dk;
-    const int s = r / Qh, qh = r % Qh;
+    const int s = (r0 + r) / Qh, qh = (r0 + r) % Qh;
     q_s[e] = Elem<T>::to_float(q[((((long long)b * S + s) * G + g) * Qh + qh) * Dk + d]);
   }
   long long frontier = (long long)base + S - 1;
@@ -368,7 +401,7 @@ __global__ void __launch_bounds__(kThreads)
       p[r] = 0.f;
       if (r < R) {
         const float full = sc[r] + __shfl_xor_sync(0xffffffffu, sc[r], 16);
-        const bool valid = have && t < base + r / Qh;
+        const bool valid = have && t < base + (r0 + r) / Qh;
         const float s_val = valid ? full * scale : kNeg;
         const float m_new = fmaxf(m[r], warp_max(s_val));
         // explicit re-mask: a row with no valid key in this tile must not
@@ -424,8 +457,9 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   const bool direct = n_live <= 1;
   const int stride = Dv + 2;     // a partial row: acc[0, Dv), m, l
-  const long long split_stride = (long long)gridDim.x * R * stride;
-  float* mine = direct ? nullptr : part + ((long long)split * gridDim.x + bg) * R * stride;
+  const long long split_stride = (long long)gridDim.x * n_rows * stride;
+  float* mine =
+      direct ? nullptr : part + (((long long)split * gridDim.x + bg) * n_rows + r0) * stride;
   for (int e = threadIdx.x; e < R * Dv; e += kThreads) {
     const int r = e / Dv, d = e % Dv;
     float mx = kNeg;
@@ -439,7 +473,7 @@ __global__ void __launch_bounds__(kThreads)
       num += acc_s[(w * R + r) * Dv + d] * c;
     }
     if (direct) {
-      const int s = r / Qh, qh = r % Qh;
+      const int s = (r0 + r) / Qh, qh = (r0 + r) % Qh;
       out[((((long long)b * S + s) * G + g) * Qh + qh) * Dv + d] =
           Elem<T>::from_float(num / fmaxf(den, 1e-30f));
     } else {
@@ -452,14 +486,16 @@ __global__ void __launch_bounds__(kThreads)
   }
   if (direct) return;
 
-  // the last live block of (b, g) to arrive merges the partials in split order
+  // the last live block of (b, g, row tile) to arrive merges the partials in
+  // split order
+  int* counter = counters + (long long)bg * gridDim.z + blockIdx.z;
   __threadfence();
   __syncthreads();
-  if (threadIdx.x == 0) *last_s = atomicAdd(counters + bg, 1) == n_live - 1;
+  if (threadIdx.x == 0) *last_s = atomicAdd(counter, 1) == n_live - 1;
   __syncthreads();
   if (!*last_s) return;
   __threadfence();
-  const float* first = part + (long long)bg * R * stride;
+  const float* first = part + ((long long)bg * n_rows + r0) * stride;
   for (int e = threadIdx.x; e < R * Dv; e += kThreads) {
     const int r = e / Dv, d = e % Dv;
     const float* pr = first + r * stride;
@@ -472,11 +508,11 @@ __global__ void __launch_bounds__(kThreads)
       den += __ldcg(pj + Dv + 1) * c;
       num += __ldcg(pj + d) * c;
     }
-    const int s = r / Qh, qh = r % Qh;
+    const int s = (r0 + r) / Qh, qh = (r0 + r) % Qh;
     out[((((long long)b * S + s) * G + g) * Qh + qh) * Dv + d] =
         Elem<T>::from_float(num / fmaxf(den, 1e-30f));
   }
-  if (threadIdx.x == 0) counters[bg] = 0;   // leave the counter as the caller gave it
+  if (threadIdx.x == 0) *counter = 0;   // leave the counter as the caller gave it
 }
 
 template <typename T, int RMAX>
@@ -484,9 +520,9 @@ cudaError_t launch_rows(const void* q, const void* k, const void* v, const int* 
                         const int* tables, void* out, float* part, int* counters, int B, int S,
                         int G, int Qh, int Dk, int Dv, int page_size, int n_tiles, int n_split,
                         int split_len, float scale, cudaStream_t stream) {
-  const int R = S * Qh;
+  const int R = min(kRowTile, S * Qh);
   const size_t smem = plain_smem_bytes<T>(R, Dk, Dv);
-  const dim3 grid(B * G, n_split);
+  const dim3 grid(B * G, n_split, (S * Qh + kRowTile - 1) / kRowTile);
   const int dpl = (Dv + 31) / 32;
 #define REPRO_LAUNCH(DPL_)                                                                     \
   do {                                                                                         \
@@ -519,9 +555,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* lengt
                    const int* tables, void* out, float* part, int* counters, int B, int S, int G,
                    int Qh, int Dk, int Dv, int page_size, int n_tiles, int n_split, int split_len,
                    float scale, cudaStream_t stream) {
-  const int R = S * Qh;
+  const int R = min(kRowTile, S * Qh);
   const long long cap = (long long)n_tiles * page_size;
-  if (Dk % 8 != 0 || Dv % 8 != 0 || Dk <= 0 || Dv <= 0 || Dk > 128 || Dv > 128 ||
+  if ((S * Qh + kRowTile - 1) / kRowTile > 65535 || Dk % 8 != 0 || Dv % 8 != 0 || Dk <= 0 || Dv <= 0 || Dk > 128 || Dv > 128 ||
       page_size <= 0 || n_tiles < 0 || n_split <= 0 || split_len <= 0 ||
       (long long)n_split * split_len < cap ||
       (n_split > 1 && (part == nullptr || counters == nullptr)) ||
@@ -533,12 +569,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* lengt
   if (R <= 4)
     return launch_rows<T, 4>(q, k, v, lengths, tables, out, part, counters, B, S, G, Qh, Dk, Dv,
                              page_size, n_tiles, n_split, split_len, scale, stream);
-  if (R <= 16)
-    return launch_rows<T, 16>(q, k, v, lengths, tables, out, part, counters, B, S, G, Qh, Dk,
-                              Dv, page_size, n_tiles, n_split, split_len, scale, stream);
-  return cudaErrorInvalidValue;
+  return launch_rows<T, kRowTile>(q, k, v, lengths, tables, out, part, counters, B, S, G, Qh,
+                                  Dk, Dv, page_size, n_tiles, n_split, split_len, scale, stream);
 }
-// -- split score (absorbed MLA) ---------------------------------------------------
+// -- split score, float32, on the CUDA cores --------------------------------------
+//
+// Grid (b * G + g, tile of 8 query rows); one warp a query row, so each warp
+// keeps one online softmax for the whole sequence and no merge is needed.  A
+// lane owns a fixed slice of the latent dims (16-byte vectors i * 32 + lane)
+// and of the rope dims (i * 32 + lane), and keeps its slice of q, q2 and of
+// the R-wide accumulator in registers.  The block stages a chunk of 32 keys'
+// latent and rope rows in shared memory for its 8 rows (zeros past the
+// frontier), each warp forms the lane's partial dot products for all 32 keys,
+// and a butterfly reduce-scatter leaves the full score of key j in lane j.
 
 constexpr int kSplitWarps = 8;               // query rows a block, one a warp
 constexpr int kSplitThreads = kSplitWarps * 32;
@@ -785,6 +828,513 @@ cudaError_t launch_split(const void* q, const void* q2, const void* k, const voi
   return cudaErrorInvalidValue;
 }
 
+
+// -- split score, bfloat16, on the tensor cores ------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kMmaTiles = 2;                  // m16 tiles of query rows a block
+constexpr int kTileWarps = 8;                 // warps on one m16 tile
+constexpr int kMmaWarps = kMmaTiles * kTileWarps;
+constexpr int kMmaThreads = kMmaWarps * 32;
+constexpr int kMmaRows = 16 * kMmaTiles;      // query rows a block
+constexpr int kStages = 4;                    // key tiles in the cp.async ring
+constexpr int kMmaKeys = 32;                  // keys a stage holds
+constexpr int kMmaSplitPages = kMmaThreads;   // table entries one split may span
+constexpr int kMmaMaxSplit = 64;              // key splits a call may take
+constexpr int kScoreStride = kMmaKeys + 4;    // floats a row of the score exchange
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kMergeBatch = 8;                // splits' loads in flight in the second pass
+constexpr int kCombineThreads = 128;          // threads a block of the second pass
+constexpr int kMaxQuarter = 9;                // k-steps of a quarter of R + D2 <= 576
+constexpr int kProbRow = kMmaKeys * 2 + 16;   // bytes a row of the staged probabilities
+
+// Byte offsets of one block's dynamic shared memory.
+struct MmaSmem {
+  int rp, d2p;              // latent and rope depth, padded to 16
+  int lat_row, rope_row;    // bytes of a staged row, padded by 16
+  int lat, rope;            // (kStages, kMmaKeys) staged key rows
+  int score;                // (kMmaTiles, 4 depth quarters, 16, kScoreStride) float32
+  int prob;                 // (kMmaRows, kProbRow bytes) bf16 probabilities
+  int corr;                 // (kMmaRows,) float32 rescale of a tile
+  int ml;                   // (kMmaRows,) float2 (m, l) after the key loop
+  int rows;                 // (kStages, kMmaKeys) pool rows
+  int pages;                // (kMmaSplitPages,) table entries
+  int total;
+};
+
+__host__ __device__ inline MmaSmem mma_smem_layout(int R, int D2) {
+  MmaSmem L;
+  L.rp = (R + 15) / 16 * 16;
+  L.d2p = (D2 + 15) / 16 * 16;
+  L.lat_row = L.rp * 2 + 16;
+  L.rope_row = L.d2p * 2 + 16;
+  int o = 0;
+  L.lat = o;    o += kStages * kMmaKeys * L.lat_row;
+  L.rope = o;   o += kStages * kMmaKeys * L.rope_row;
+  L.score = o;  o += 4 * kMmaRows * kScoreStride * 4;
+  L.prob = o;   o += kMmaRows * kProbRow;
+  L.corr = o;   o += kMmaRows * 4;
+  L.ml = o;     o += kMmaRows * 8;
+  L.rows = o;   o += kStages * kMmaKeys * 8;
+  L.pages = o;  o += kMmaSplitPages * 4;
+  L.total = o;
+  return L;
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned addr, unsigned (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(unsigned addr, unsigned (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// c += a (16 x 16, row) . b (16 x 8, col), bf16 in, float32 accumulators.
+__device__ __forceinline__ void mma_16816(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                          unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// NT: 8-column accumulator tiles of the latent a warp owns (R <= 64 * NT).
+template <int NT>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+    decode_attention_split_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ q2,
+                                      const bf16* __restrict__ k, const bf16* __restrict__ k2,
+                                      const int* __restrict__ lengths,
+                                      const int* __restrict__ tables, bf16* __restrict__ out,
+                                      float* __restrict__ part, int S, int G, int Qh, int R,
+                                      int D2, int page_size, int n_tiles, int split_len,
+                                      float scale_log2) {
+  extern __shared__ __align__(128) unsigned char mma_smem[];
+  const float kNegInf = __int_as_float(0xff800000);
+  const MmaSmem L = mma_smem_layout(R, D2);
+  unsigned char* lat_st = mma_smem + L.lat;
+  unsigned char* rope_st = mma_smem + L.rope;
+  float* score_s = reinterpret_cast<float*>(mma_smem + L.score);
+  unsigned char* prob_s = mma_smem + L.prob;
+  float* corr_s = reinterpret_cast<float*>(mma_smem + L.corr);
+  float2* ml_s = reinterpret_cast<float2*>(mma_smem + L.ml);
+  long long* row_s = reinterpret_cast<long long*>(mma_smem + L.rows);
+  int* page_s = reinterpret_cast<int*>(mma_smem + L.pages);
+
+  const int tile = blockIdx.x;
+  const int split = blockIdx.y;
+  const int bg = blockIdx.z;
+  const int b = bg / G;
+  const int g = bg % G;
+  const int n_rows = S * Qh;                   // query rows of the window
+  const int r0 = tile * kMmaRows;              // the tile's first
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const long long cap = (long long)n_tiles * page_size;
+  const int lo = split * split_len;            // the split's first key
+  const int* tbl = tables == nullptr ? nullptr : tables + (long long)b * n_tiles;
+  const int p0 = lo / page_size;
+
+  int entry = 0;
+  if (tbl != nullptr) {
+    const int pi = p0 + tid;   // page pi holds keys [pi * ps, (pi + 1) * ps)
+    if (pi < n_tiles && (long long)pi * page_size < (long long)lo + split_len) entry = tbl[pi];
+  }
+  const int base = lengths[b];                 // keys visible to window position 0
+  long long frontier = (long long)base + S - 1;
+  if (frontier > cap) frontier = cap;
+  if (frontier < 0) frontier = 0;
+  // splits that hold a visible key; split 0 also answers a row that sees none
+  const int n_live = static_cast<int>((frontier + split_len - 1) / split_len);
+  if (split > 0 && split >= n_live) return;
+  const int hi = static_cast<int>(min((long long)lo + split_len, frontier));  // keys [lo, hi)
+  const int n_steps = hi > lo ? (hi - lo + kMmaKeys - 1) / kMmaKeys : 0;
+
+  // The warp's m16 tile mt of the block's rows, and its place lw among the
+  // tile's warps; the lane's place in the mma fragments: rows gr and gr + 8
+  // of the m16 tile, columns 2 * qd, 2 * qd + 1 of each 8-wide tile.
+  const int mt = warp / kTileWarps, lw = warp % kTileWarps;
+  const int gr = lane >> 2, qd = lane & 3;
+  const int ra = r0 + 16 * mt + gr, rb = ra + 8;
+  const bool mt_live = r0 + 16 * mt < n_rows;  // a tile past the window skips its products
+  // Scores: warp lw takes keys [16 (lw & 1), 16 (lw & 1) + 16) of a key tile
+  // (two 8-key accumulators) over the quarter lw >> 1 of the k-steps (16
+  // deep each).
+  const int n_lat = L.rp / 16, n_k = n_lat + L.d2p / 16;
+  const int k_q = (n_k + 3) / 4;               // k-steps a quarter, at most kMaxQuarter
+  const int quarter = lw >> 1;
+  const int k_beg = quarter * k_q, k_end = mt_live ? min(n_k, k_beg + k_q) : k_beg;
+  const int key_w = (lw & 1) * 16;
+
+  // The warp's A fragments of its quarter, straight from q / q2 into
+  // registers, once: zeros past the window and in the depth padding.
+  unsigned qa[kMaxQuarter][4];
+  {
+    const bf16* qrow_a = nullptr;
+    const bf16* qrow_b = nullptr;
+    const bf16* q2row_a = nullptr;
+    const bf16* q2row_b = nullptr;
+    if (ra < n_rows) {
+      const long long r = (((long long)b * S + ra / Qh) * G + g) * Qh + ra % Qh;
+      qrow_a = q + r * R;
+      q2row_a = q2 + r * D2;
+    }
+    if (rb < n_rows) {
+      const long long r = (((long long)b * S + rb / Qh) * G + g) * Qh + rb % Qh;
+      qrow_b = q + r * R;
+      q2row_b = q2 + r * D2;
+    }
+    auto pair = [](const bf16* row, int col, int width) -> unsigned {
+      return row != nullptr && col < width ? *reinterpret_cast<const unsigned*>(row + col) : 0u;
+    };
+#pragma unroll
+    for (int j = 0; j < kMaxQuarter; ++j) {
+      const int kk = k_beg + j;
+      const bool lat = kk < n_lat;
+      const int c = (lat ? kk : kk - n_lat) * 16 + 2 * qd;
+      const int w = kk < k_end ? (lat ? R : D2) : 0;
+      qa[j][0] = pair(lat ? qrow_a : q2row_a, c, w);
+      qa[j][1] = pair(lat ? qrow_b : q2row_b, c, w);
+      qa[j][2] = pair(lat ? qrow_a : q2row_a, c + 8, w);
+      qa[j][3] = pair(lat ? qrow_b : q2row_b, c + 8, w);
+    }
+  }
+
+  page_s[tid] = entry > 0 ? entry : 0;
+  // zero the depth padding of the key stages once: cp.async never writes it
+  if (L.rp > R && tid < kStages * kMmaKeys)
+    *reinterpret_cast<uint4*>(lat_st + tid * L.lat_row + R * 2) = make_uint4(0u, 0u, 0u, 0u);
+  if (L.d2p > D2 && tid < kStages * kMmaKeys)
+    *reinterpret_cast<uint4*>(rope_st + tid * L.rope_row + D2 * 2) = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+
+  // Pool rows of tile i's keys ((page * page_size + offset) * G + g), -1 past
+  // the frontier; one thread a key.
+  auto rows = [&](int i) {
+    if (tid < kMmaKeys) {
+      const int t = lo + i * kMmaKeys + tid;
+      long long row = -1;
+      if (t < hi) {
+        row = tbl != nullptr
+                  ? ((long long)page_s[t / page_size - p0] * page_size + t % page_size) * G + g
+                  : ((long long)b * page_size + t) * G + g;
+      }
+      row_s[(i % kStages) * kMmaKeys + tid] = row;
+    }
+  };
+  // Each thread copies the same 16-byte chunk of every few keys' rows.
+  const int lc = R / 8, rc = D2 / 8;           // 16-byte chunks of a key's rows
+  const int l_keys = kMmaThreads / lc, r_keys = kMmaThreads / rc;
+  const int lx = tid % lc, lj = tid / lc;
+  const int rx = tid % rc, rj = tid / rc;
+  auto issue = [&](int i) {
+    const long long* rs = row_s + (i % kStages) * kMmaKeys;
+    unsigned char* ls = lat_st + (i % kStages) * kMmaKeys * L.lat_row;
+    unsigned char* ps = rope_st + (i % kStages) * kMmaKeys * L.rope_row;
+    if (lj < l_keys) {
+      for (int j = lj; j < kMmaKeys; j += l_keys) {
+        const long long row = rs[j];
+        cp_async16(ls + j * L.lat_row + lx * 16, k + (row < 0 ? 0 : row) * R + lx * 8, row >= 0);
+      }
+    }
+    if (rj < r_keys) {
+      for (int j = rj; j < kMmaKeys; j += r_keys) {
+        const long long row = rs[j];
+        cp_async16(ps + j * L.rope_row + rx * 16, k2 + (row < 0 ? 0 : row) * D2 + rx * 8,
+                   row >= 0);
+      }
+    }
+  };
+
+  // ldmatrix row addresses of this lane, relative to a stage: B of the
+  // scores (two 8-key tiles) key key_w + (lane & 7) + 8 (lane >> 4), column
+  // half (lane >> 3) & 1; B of P @ V (.trans) key (lane & 7) + 8 ((lane >>
+  // 3) & 1), column half lane >> 4; A of P @ V row lane & 15, column half
+  // lane >> 4.
+  const int kb_key = key_w + (lane & 7) + ((lane >> 4) << 3);
+  const int kb_col = ((lane >> 3) & 1) * 16;
+  const unsigned kb_lat = kb_key * L.lat_row + kb_col;
+  const unsigned kb_rope = kb_key * L.rope_row + kb_col;
+  const int vb_key = (lane & 7) + ((lane >> 3) & 1) * 8, vb_col = (lane >> 4) * 16;
+  const unsigned pa_addr =
+      smem_u32(prob_s + (16 * mt + (lane & 15)) * kProbRow + (lane >> 4) * 16);
+  const int col_w = lw * NT * 8;               // the warp's first latent column
+  // The softmax: warp w owns row 2 w + (lane >> 4) of the block, keys
+  // 2 (lane & 15) + {0, 1} of each key tile; its 16 lanes keep the row's m
+  // and l.
+  const int o_row = 2 * warp + (lane >> 4);
+  const int o_key = 2 * (lane & 15);
+  const int o_lim = base + (r0 + o_row < n_rows ? (r0 + o_row) / Qh : 0);  // keys t < o_lim
+  float m_o = kNeg, l_o = 0.f;
+
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) acc[n][x] = 0.f;
+
+#pragma unroll
+  for (int i = 0; i < kStages; ++i) rows(i);
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {   // kStages - 1 tiles in flight
+    if (i < n_steps) issue(i);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n_steps; ++i) {
+    cp_async_wait<kStages - 2>();   // this thread's copies of tile i landed
+    __syncthreads();             // everyone's; and everyone is done with tile i - 1
+    if (i + kStages - 1 < n_steps) issue(i + kStages - 1);   // into tile i - 1's stage
+    cp_async_commit();
+    if (i + kStages < n_steps) rows(i + kStages);            // tile i's rows are spent
+    const unsigned lat_b = smem_u32(lat_st + (i % kStages) * kMmaKeys * L.lat_row);
+    const unsigned rope_b = smem_u32(rope_st + (i % kStages) * kMmaKeys * L.rope_row);
+
+    // partial scores of the warp's 16 keys over its quarter of the depth
+    float c0[4] = {0.f, 0.f, 0.f, 0.f}, c1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < kMaxQuarter; ++j) {
+      const int kk = k_beg + j;
+      if (kk < k_end) {
+        unsigned bb[4];
+        ldsm_x4(kk < n_lat ? lat_b + kb_lat + kk * 32 : rope_b + kb_rope + (kk - n_lat) * 32,
+                bb);
+        mma_16816(c0, qa[j], bb[0], bb[1]);
+        mma_16816(c1, qa[j], bb[2], bb[3]);
+      }
+    }
+    {
+      float* sp = score_s + (mt * 4 + quarter) * 16 * kScoreStride + key_w + 2 * qd;
+      *reinterpret_cast<float2*>(sp + gr * kScoreStride) = make_float2(c0[0], c0[1]);
+      *reinterpret_cast<float2*>(sp + (gr + 8) * kScoreStride) = make_float2(c0[2], c0[3]);
+      *reinterpret_cast<float2*>(sp + 8 + gr * kScoreStride) = make_float2(c1[0], c1[1]);
+      *reinterpret_cast<float2*>(sp + 8 + (gr + 8) * kScoreStride) = make_float2(c1[2], c1[3]);
+    }
+    __syncthreads();
+
+    // one online-softmax step of the warp's two rows: the quarters summed in
+    // order, masked (-inf: exp2 of it is exactly 0 against a finite max)
+    {
+      const int t = lo + i * kMmaKeys + o_key;
+      float sx = 0.f, sy = 0.f;
+#pragma unroll
+      for (int qt = 0; qt < 4; ++qt) {
+        const float2 v = *reinterpret_cast<const float2*>(
+            score_s + (((o_row >> 4) * 4 + qt) * 16 + (o_row & 15)) * kScoreStride + o_key);
+        sx += v.x;
+        sy += v.y;
+      }
+      const float x0 = (t < hi && t < o_lim) ? sx * scale_log2 : kNegInf;
+      const float x1 = (t + 1 < hi && t + 1 < o_lim) ? sy * scale_log2 : kNegInf;
+      float mx = fmaxf(x0, x1);
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float mn = fmaxf(m_o, mx);         // finite: m starts at kNeg
+      const float corr = exp2f(m_o - mn);
+      m_o = mn;
+      const float p0 = exp2f(x0 - mn), p1 = exp2f(x1 - mn);
+      float sum = p0 + p1;
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      l_o = l_o * corr + sum;
+      *reinterpret_cast<__nv_bfloat162*>(prob_s + o_row * kProbRow + o_key * 2) =
+          __floats2bfloat162_rn(p0, p1);
+      if ((lane & 15) == 0) corr_s[o_row] = corr;
+    }
+    __syncthreads();
+
+    // acc = acc * corr + P @ latent over the warp's columns, two 8-column
+    // tiles a load; P read back as the bf16 A operand of two 16-key k-steps
+    const float corr_a = corr_s[16 * mt + gr], corr_b = corr_s[16 * mt + gr + 8];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      acc[n][0] *= corr_a;
+      acc[n][1] *= corr_a;
+      acc[n][2] *= corr_b;
+      acc[n][3] *= corr_b;
+    }
+    unsigned pa[2][4];
+    ldsm_x4(pa_addr, pa[0]);
+    ldsm_x4(pa_addr + 32, pa[1]);
+#pragma unroll
+    for (int n = 0; n < NT; n += 2) {
+      const int c = col_w + n * 8;
+      if (mt_live && c < R) {
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          unsigned bv[4];
+          ldsm_x4_trans(lat_b + (t * 16 + vb_key) * L.lat_row + c * 2 + vb_col, bv);
+          mma_16816(acc[n], pa[t], bv[0], bv[1]);
+          mma_16816(acc[n + 1], pa[t], bv[2], bv[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  if ((lane & 15) == 0) ml_s[o_row] = make_float2(m_o, l_o);
+  __syncthreads();
+  const float2 ml_a = ml_s[16 * mt + gr], ml_b = ml_s[16 * mt + gr + 8];
+
+  auto out_row = [&](int r) {   // r < n_rows
+    const int s = r / Qh, qh = r % Qh;
+    return out + ((((long long)b * S + s) * G + g) * Qh + qh) * R;
+  };
+  if (n_live <= 1) {            // the row's keys lie in this split: the output
+    const float inv_a = 1.f / fmaxf(ml_a.y, 1e-30f), inv_b = 1.f / fmaxf(ml_b.y, 1e-30f);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int c = col_w + n * 8 + 2 * qd;
+      if (c < R) {
+        if (ra < n_rows)
+          *reinterpret_cast<__nv_bfloat162*>(out_row(ra) + c) =
+              __floats2bfloat162_rn(acc[n][0] * inv_a, acc[n][1] * inv_a);
+        if (rb < n_rows)
+          *reinterpret_cast<__nv_bfloat162*>(out_row(rb) + c) =
+              __floats2bfloat162_rn(acc[n][2] * inv_b, acc[n][3] * inv_b);
+      }
+    }
+    return;
+  }
+  // else the partial state, for the second pass
+  const int stride = R + 4;     // a partial row: acc[0, R), m, l, 2 floats of padding
+  float* mine = part + (((long long)split * gridDim.z + bg) * n_rows) * stride;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const int c = col_w + n * 8 + 2 * qd;
+    if (c < R) {
+      if (ra < n_rows)
+        *reinterpret_cast<float2*>(mine + ra * stride + c) = make_float2(acc[n][0], acc[n][1]);
+      if (rb < n_rows)
+        *reinterpret_cast<float2*>(mine + rb * stride + c) = make_float2(acc[n][2], acc[n][3]);
+    }
+  }
+  if (lw == 0 && qd == 0) {
+    if (ra < n_rows) *reinterpret_cast<float2*>(mine + ra * stride + R) = ml_a;
+    if (rb < n_rows) *reinterpret_cast<float2*>(mine + rb * stride + R) = ml_b;
+  }
+}
+
+// The second pass when the keys are split: merges the splits' partial states
+// of query row blockIdx.x of (b, g) = blockIdx.y, in split order, each
+// rescaled by exp2(m_j - m) / l; four columns a thread.  Rows whose frontier
+// lies in their first split were written by the first pass and are skipped.
+__global__ void __launch_bounds__(kCombineThreads)
+    decode_attention_split_combine_kernel(const float* __restrict__ part,
+                                          const int* __restrict__ lengths,
+                                          bf16* __restrict__ out, int S, int G, int Qh, int R,
+                                          int page_size, int n_tiles, int split_len) {
+  __shared__ float2 ml_s[kMmaMaxSplit];
+  const int r = blockIdx.x;
+  const int bg = blockIdx.y;
+  const int b = bg / G, g = bg % G;
+  const int n_rows = S * Qh;
+  const long long cap = (long long)n_tiles * page_size;
+  long long frontier = (long long)lengths[b] + S - 1;
+  if (frontier > cap) frontier = cap;
+  if (frontier < 0) frontier = 0;
+  const int n_live = static_cast<int>((frontier + split_len - 1) / split_len);
+  if (n_live <= 1) return;
+  const int stride = R + 4;     // a partial row: acc[0, R), m, l, 2 floats of padding
+  const long long split_stride = (long long)gridDim.y * n_rows * stride;
+  const float* pr = part + ((long long)bg * n_rows + r) * stride;
+  const int tid = threadIdx.x;
+  if (tid < n_live) ml_s[tid] = *reinterpret_cast<const float2*>(pr + tid * split_stride + R);
+  __syncthreads();
+  float mx = kNeg;
+  for (int j = 0; j < n_live; ++j) mx = fmaxf(mx, ml_s[j].x);
+  float den = 0.f;
+  for (int j = 0; j < n_live; ++j) den += ml_s[j].y * exp2f(ml_s[j].x - mx);
+  const float inv = 1.f / fmaxf(den, 1e-30f);
+  const int s = r / Qh, qh = r % Qh;
+  bf16* o = out + ((((long long)b * S + s) * G + g) * Qh + qh) * R;
+  for (int c = 4 * tid; c < R; c += 4 * kCombineThreads) {
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int j0 = 0; j0 < n_live; j0 += kMergeBatch) {
+      float4 v[kMergeBatch];   // every split's load in flight before any is used
+#pragma unroll
+      for (int u = 0; u < kMergeBatch; ++u)
+        v[u] = j0 + u < n_live
+                   ? *reinterpret_cast<const float4*>(pr + (j0 + u) * split_stride + c)
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int u = 0; u < kMergeBatch; ++u) {
+        if (j0 + u < n_live) {
+          const float w = exp2f(ml_s[j0 + u].x - mx) * inv;
+          sum.x += v[u].x * w;
+          sum.y += v[u].y * w;
+          sum.z += v[u].z * w;
+          sum.w += v[u].w * w;
+        }
+      }
+    }
+    __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(o + c);
+    o2[0] = __floats2bfloat162_rn(sum.x, sum.y);
+    o2[1] = __floats2bfloat162_rn(sum.z, sum.w);
+  }
+}
+
+template <int NT>
+cudaError_t launch_split_mma_nt(const void* q, const void* q2, const void* k, const void* k2,
+                                const int* lengths, const int* tables, void* out, float* part,
+                                int B, int S, int G, int Qh, int R, int D2, int page_size,
+                                int n_tiles, int n_split, int split_len, float scale,
+                                cudaStream_t stream) {
+  const int smem = mma_smem_layout(R, D2).total;
+  auto kern = decode_attention_split_mma_kernel<NT>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid((S * Qh + kMmaRows - 1) / kMmaRows, n_split, B * G);
+  kern<<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(q2), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(k2), lengths, tables, static_cast<bf16*>(out), part, S, G, Qh, R,
+      D2, page_size, n_tiles, split_len, scale * kLog2e);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || n_split == 1) return e;
+  decode_attention_split_combine_kernel<<<dim3(S * Qh, B * G), kCombineThreads, 0, stream>>>(
+      part, lengths, static_cast<bf16*>(out), S, G, Qh, R, page_size, n_tiles, split_len);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_split_mma(const void* q, const void* q2, const void* k, const void* k2,
+                             const int* lengths, const int* tables, void* out, float* part, int B,
+                             int S, int G, int Qh, int R, int D2, int page_size, int n_tiles,
+                             int n_split, int split_len, float scale, cudaStream_t stream) {
+  const long long cap = (long long)n_tiles * page_size;
+  if (R % 8 != 0 || D2 % 8 != 0 || R <= 0 || D2 <= 0 || R > 512 || D2 > 64 ||
+      page_size <= 0 || n_tiles < 0 || n_split <= 0 || n_split > kMmaMaxSplit ||
+      split_len <= 0 || (long long)n_split * split_len < cap ||
+      (n_split > 1 && part == nullptr) ||
+      (tables != nullptr && (split_len - 1) / page_size + 2 > kMmaSplitPages) ||
+      (S * Qh + kMmaRows - 1) / kMmaRows > 65535 || B * G > 65535)
+    return cudaErrorInvalidValue;
+  const int tiles8 = (R + 7) / 8;                     // 8-column tiles of the latent
+  const int per_warp = (tiles8 + kTileWarps - 1) / kTileWarps;
+  if (per_warp <= 2)
+    return launch_split_mma_nt<2>(q, q2, k, k2, lengths, tables, out, part, B, S, G, Qh, R, D2,
+                                  page_size, n_tiles, n_split, split_len, scale, stream);
+  if (per_warp <= 4)
+    return launch_split_mma_nt<4>(q, q2, k, k2, lengths, tables, out, part, B, S, G, Qh, R, D2,
+                                  page_size, n_tiles, n_split, split_len, scale, stream);
+  return launch_split_mma_nt<8>(q, q2, k, k2, lengths, tables, out, part, B, S, G, Qh, R, D2,
+                                page_size, n_tiles, n_split, split_len, scale, stream);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it).
@@ -794,7 +1344,8 @@ cudaError_t launch_split(const void* q, const void* q2, const void* k, const voi
 // n_tiles = 1.  Keys split n_split ways, split_len each (n_split * split_len
 // >= n_tiles * page_size; paged, one split spans at most 128 table entries).
 // With n_split > 1, part is float32 scratch of n_split * B * G * S * Qh *
-// (Dv + 2) and counters B * G int32 zeros, left zero again; with n_split == 1
+// (Dv + 2) and counters B * G * ceil(S * Qh / 16) int32 zeros, left zero
+// again; with n_split == 1
 // both may be NULL.  Returns the launch's cudaGetLastError() code.
 extern "C" int repro_decode_attention(int dtype, const void* q, const void* k, const void* v,
                                       const void* lengths, const void* tables, void* out,
@@ -821,23 +1372,32 @@ extern "C" int repro_decode_attention(int dtype, const void* q, const void* k, c
 }
 
 // Dynamic shared memory, in bytes, of one block of repro_decode_attention at
-// these shapes (dtype as above; R = S * Qh query rows).
+// these shapes (dtype as above; R = S * Qh query rows, of which a block holds
+// a tile of at most 16).
 extern "C" long long repro_decode_attention_smem(int dtype, int R, int Dk, int Dv) {
+  R = R < kRowTile ? R : kRowTile;
   return static_cast<long long>(dtype == 0 ? plain_smem_bytes<float>(R, Dk, Dv)
                                            : plain_smem_bytes<__nv_bfloat16>(R, Dk, Dv));
 }
 
-// Split score of absorbed MLA; dtype as above, shared by q, q2, k, k2 and out.
-// q (B, S, G, Qh, R), q2 (B, S, G, Qh, D2) and out (B, S, G, Qh, R)
-// contiguous; lengths (B,) int32.  Paged: k (n_pages, page_size, G, R) -- the
-// latent, read as both key and value -- and k2 (n_pages, page_size, G, D2),
-// tables (B, n_tiles) int32.  Contiguous: tables == NULL, k (B, T, G, R), k2
-// (B, T, G, D2) with page_size = T and n_tiles = 1.  R and D2 are multiples
-// of 8, R <= 512, D2 <= 64.  Returns the launch's cudaGetLastError() code.
+// Split score of absorbed MLA; dtype as above, shared by q, q2, k, k2 and out:
+// float32 runs on the CUDA cores, bfloat16 on the tensor cores.  q (B, S, G,
+// Qh, R), q2 (B, S, G, Qh, D2) and out (B, S, G, Qh, R) contiguous; lengths
+// (B,) int32.  Paged: k (n_pages, page_size, G, R) -- the latent, read as both
+// key and value -- and k2 (n_pages, page_size, G, D2), tables (B, n_tiles)
+// int32.  Contiguous: tables == NULL, k (B, T, G, R), k2 (B, T, G, D2) with
+// page_size = T and n_tiles = 1.  R and D2 are multiples of 8, R <= 512, D2 <=
+// 64.  bfloat16 splits the keys n_split ways (at most 64), split_len each
+// (n_split * split_len >= n_tiles * page_size; paged, one split spans at most
+// 512 table entries); with n_split > 1, part is float32 scratch of n_split * B
+// * G * S * Qh * (R + 4), and a second kernel merges the splits.  float32
+// takes no split: part, n_split and split_len are not read.  Returns the
+// launches' cudaGetLastError() code.
 extern "C" int repro_decode_attention_split(int dtype, const void* q, const void* q2,
                                             const void* k, const void* k2, const void* lengths,
-                                            const void* tables, void* out, int B, int S, int G,
-                                            int Qh, int R, int D2, int page_size, int n_tiles,
+                                            const void* tables, void* out, void* part, int B,
+                                            int S, int G, int Qh, int R, int D2, int page_size,
+                                            int n_tiles, int n_split, int split_len,
                                             float scale, void* stream) {
   if (B <= 0 || G <= 0 || S <= 0 || Qh <= 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -848,10 +1408,16 @@ extern "C" int repro_decode_attention_split(int dtype, const void* q, const void
     err = launch_split<float>(q, q2, k, k2, len, tbl, out, B, S, G, Qh, R, D2, page_size,
                               n_tiles, scale, st);
   } else if (dtype == 1) {
-    err = launch_split<__nv_bfloat16>(q, q2, k, k2, len, tbl, out, B, S, G, Qh, R, D2,
-                                      page_size, n_tiles, scale, st);
+    err = launch_split_mma(q, q2, k, k2, len, tbl, out, static_cast<float*>(part), B, S, G, Qh,
+                           R, D2, page_size, n_tiles, n_split, split_len, scale, st);
   } else {
     err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+// Dynamic shared memory, in bytes, of one block of the bfloat16 split-score
+// kernel at these widths.
+extern "C" long long repro_decode_attention_split_smem(int R, int D2) {
+  return mma_smem_layout(R, D2).total;
 }

@@ -10,13 +10,15 @@ import math
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.decode_attention.ref import (key_split_plan,
-                                                      lengths_vector)
+from repro_torch.kernels.decode_attention.ref import (MAX_SCORE_SPLITS,
+                                                      key_split_plan,
+                                                      lengths_vector,
+                                                      split_score_plan)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_ROWS = 16       # S * Qh query rows one block holds
+ROW_TILE = 16       # query rows of the window one plain-score block holds
 MAX_HEAD_DIM = 128
-MAX_LATENT = 512    # split score: latent width (Dk = Dv) a warp holds
+MAX_LATENT = 512    # split score: latent width (Dk = Dv) the kernels take
 MAX_SPLIT_DIM = 64  # split score: width of the second (rope) term
 # (device index, stream) -> int32 counters of the plain-score kernel's split
 # merge: allocated zero, and every launch leaves them zero again, so a call
@@ -65,9 +67,10 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lengths () or (B,) -> (B,S,G,Qh,Dv) in q's dtype, on the card.
 
     The keys are split across blocks by ``key_split_plan``, from shapes
-    alone; with more than one split the call allocates float32 scratch for
-    the splits' partial states, and takes one int32 counter a (row, group)
-    from ``_counters``.  It reads nothing back to the host."""
+    alone, and the window's S * Qh query rows into tiles of ``ROW_TILE``;
+    with more than one split the call allocates float32 scratch for the
+    splits' partial states, and takes one int32 counter a (row, group, row
+    tile) from ``_counters``.  It reads nothing back to the host."""
     _check_operands("decode_attention_cuda", q, k, v)
     if q.dim() != 5 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("decode_attention_cuda: q (B,S,G,Qh,D) and k/v "
@@ -78,12 +81,10 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or k.shape[3] != dk:
         raise ValueError(f"decode_attention_cuda: shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)} disagree")
-    if dk % 8 or dv % 8 or dk > MAX_HEAD_DIM or dv > MAX_HEAD_DIM \
-            or s_win * qh > MAX_ROWS:
+    if dk % 8 or dv % 8 or dk > MAX_HEAD_DIM or dv > MAX_HEAD_DIM:
         raise ValueError(
-            f"decode_attention_cuda: needs Dk % 8 == Dv % 8 == 0, Dk, Dv <= "
-            f"{MAX_HEAD_DIM} and S*Qh <= {MAX_ROWS}; got Dk={dk} Dv={dv} "
-            f"S*Qh={s_win * qh}")
+            f"decode_attention_cuda: needs Dk % 8 == Dv % 8 == 0 and Dk, Dv "
+            f"<= {MAX_HEAD_DIM}; got Dk={dk} Dv={dv}")
     page_size, n_tiles, tbl = _table("decode_attention_cuda", block_tables,
                                      k, b)
     if scale is None:
@@ -98,7 +99,8 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if n_split > 1:
         part = torch.empty((n_split, b * g, s_win * qh, dv + 2),
                            dtype=torch.float32, device=dev)
-        counters = _counters(dev, stream, b * g)
+        counters = _counters(dev, stream,
+                             b * g * -(-(s_win * qh) // ROW_TILE))
     lib = build.library()
     rc = lib.repro_decode_attention(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -134,7 +136,13 @@ def decode_attention_split_cuda(q: torch.Tensor, k: torch.Tensor,
     q (B,S,G,Qh,R); q2 (B,S,G,Qh,D2); k (B,T,G,R) and k2 (B,T,G,D2), or
     with ``block_tables`` (B, max_pages) int32 pools (n_pages, ps, G, R)
     and (n_pages, ps, G, D2); ``v`` must be ``k`` (the latent is both key
-    and value); lengths () or (B,) -> (B,S,G,Qh,R) in q's dtype."""
+    and value); lengths () or (B,) -> (B,S,G,Qh,R) in q's dtype.
+
+    bfloat16 runs on the tensor cores with the keys split across blocks by
+    ``split_score_plan``, from shapes alone: with more than one split the
+    call allocates float32 scratch for the splits' partial states, which a
+    second kernel merges.  float32 runs on the CUDA cores, unsplit.  It
+    reads nothing back to the host."""
     name = "decode_attention_split_cuda"
     _check_operands(name, q, k, q2, k2)
     if q.dim() != 5 or q2.dim() != 5 or k.dim() != 4 or k2.dim() != 4:
@@ -161,12 +169,26 @@ def decode_attention_split_cuda(q: torch.Tensor, k: torch.Tensor,
     dev = q.device
     ln = lengths_vector(lengths, b, dev)
     out = torch.empty((b, s_win, g, qh, r), dtype=q.dtype, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    n_split, split_len, part = 1, 1, None
+    if q.dtype == torch.bfloat16:
+        rows = s_win * qh
+        n_split, split_len = split_score_plan(b, g, rows, page_size, n_tiles,
+                                              tbl is not None)
+        if n_split > MAX_SCORE_SPLITS:
+            raise ValueError(f"{name}: {n_tiles} table entries of {page_size} "
+                             f"keys need {n_split} key splits, more than "
+                             f"{MAX_SCORE_SPLITS}")
+        if n_split > 1:
+            part = torch.empty((n_split, b * g, rows, r + 4),
+                               dtype=torch.float32, device=dev)
     lib = build.library()
     rc = lib.repro_decode_attention_split(
         _DTYPES[q.dtype], q.data_ptr(), q2.data_ptr(), k.data_ptr(),
         k2.data_ptr(), ln.data_ptr(), None if tbl is None else tbl.data_ptr(),
-        out.data_ptr(), b, s_win, g, qh, r, d2, page_size, n_tiles,
-        float(scale), torch.cuda.current_stream(dev).cuda_stream)
+        out.data_ptr(), None if part is None else part.data_ptr(), b, s_win,
+        g, qh, r, d2, page_size, n_tiles, n_split, split_len, float(scale),
+        stream)
     build.check(rc, "decode_attention_split")
     decode_attention_split_cuda.launches += 1
     return out

@@ -1,7 +1,9 @@
 """Plain PyTorch version of the ragged, paged decode-attention kernel, and
-of the plain-score kernel's key-split algorithm: the host's choice of the
-split (``key_split_plan``), the per-split partial states
-(``key_split_partials``) and their merge (``merge_key_splits``)."""
+of its key-split algorithm: the host's choice of the split
+(``key_split_plan`` for the plain score, ``split_score_plan`` for the
+split score of absorbed MLA), the per-split partial states
+(``key_split_partials``, either score) and their merge
+(``merge_key_splits``)."""
 from __future__ import annotations
 
 import math
@@ -12,6 +14,12 @@ NEG = -1e30
 TILE_KEYS = 64          # keys the plain-score kernel stages a step
 SPLIT_BLOCKS = 528      # blocks a call aims for: 4 on each of an H100's 132 SMs
 MAX_SPLIT_PAGES = 128   # table entries one split may span (held in shared memory)
+# the split-score (absorbed-MLA) kernel in bfloat16
+SCORE_TILE_KEYS = 32    # keys it stages a step
+SCORE_ROWS = 32         # query rows a block holds (two tensor-core tiles)
+SCORE_BLOCKS = 132      # blocks a call may fill: one an SM of an H100
+MAX_SCORE_SPLITS = 64   # key splits a call may take (their (m, l) in smem)
+MAX_SCORE_SPLIT_PAGES = 512   # table entries one split may span
 
 
 def gather_pages(pool: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:
@@ -95,11 +103,41 @@ def key_split_plan(b: int, g: int, page_size: int, n_tiles: int,
     return -(-cap // split_len), split_len
 
 
+def split_score_plan(b: int, g: int, rows: int, page_size: int,
+                     n_tiles: int, paged: bool) -> tuple:
+    """(n_split, split_len): how the bfloat16 split-score kernel splits a
+    row's key capacity ``n_tiles * page_size`` across blocks, from shapes
+    alone (the batch, the groups, the ``rows = S * Qh`` query rows of a
+    window and the capacity), never from the lengths.  A block holds
+    ``SCORE_ROWS`` query rows, so a call has ``b * g * ceil(rows /
+    SCORE_ROWS)`` blocks a split; the split count is the most that keeps
+    them within ``SCORE_BLOCKS`` (one wave: a part-filled second wave of
+    whole splits would double the time), at least 1 and at most
+    ``MAX_SCORE_SPLITS``.  Each split's partial state is a (rows, R + 4)
+    float32 block of scratch, so fewer rows a block would mean more splits
+    and more scratch.  A split is a whole number of ``SCORE_TILE_KEYS``
+    tiles, and in paged mode spans at most ``MAX_SCORE_SPLIT_PAGES`` table
+    entries."""
+    cap = max(1, page_size * n_tiles)
+    tiles = -(-cap // SCORE_TILE_KEYS)
+    blocks = b * g * -(-rows // SCORE_ROWS)
+    n_split = min(max(1, SCORE_BLOCKS // max(1, blocks)), tiles,
+                  MAX_SCORE_SPLITS)
+    split_len = -(-tiles // n_split) * SCORE_TILE_KEYS
+    if paged:
+        split_len = min(split_len, max(
+            SCORE_TILE_KEYS, (MAX_SCORE_SPLIT_PAGES - 1) * page_size
+            // SCORE_TILE_KEYS * SCORE_TILE_KEYS))
+    return -(-cap // split_len), split_len
+
+
 def key_split_partials(q, k, v, lengths, n_split: int, split_len: int,
-                       scale=None, block_tables=None):
+                       scale=None, block_tables=None, q2=None, k2=None):
     """The kernel's first pass in plain PyTorch: for each split j, the
     online-softmax state of every query row over keys [j * split_len,
-    (j + 1) * split_len) below the row's frontier.
+    (j + 1) * split_len) below the row's frontier.  With ``q2``/``k2`` the
+    score is the split score (q.k^T + q2.k2^T) * scale, as
+    ``decode_attention_ref`` takes it.
 
     q (B,S,G,Qh,Dk); k/v as ``decode_attention_ref`` takes them ->
     (m, l, acc) in float32: m and l (n_split,B,S,G,Qh), acc
@@ -110,6 +148,7 @@ def key_split_partials(q, k, v, lengths, n_split: int, split_len: int,
     if block_tables is not None:
         k = gather_pages(k, block_tables)
         v = gather_pages(v, block_tables)
+        k2 = None if k2 is None else gather_pages(k2, block_tables)
     b, s_win, g, qh, dk = q.shape
     t = k.shape[1]
     if scale is None:
@@ -121,8 +160,11 @@ def key_split_partials(q, k, v, lengths, n_split: int, split_len: int,
     for j in range(n_split):
         lo, hi = j * split_len, min((j + 1) * split_len, t)
         pos = torch.arange(lo, max(lo, hi), device=q.device)
-        sc = torch.einsum("bsgqd,btgd->bsgqt", q.float(),
-                          k[:, lo:hi].float()) * scale
+        sc = torch.einsum("bsgqd,btgd->bsgqt", q.float(), k[:, lo:hi].float())
+        if q2 is not None:
+            sc = sc + torch.einsum("bsgqd,btgd->bsgqt", q2.float(),
+                                   k2[:, lo:hi].float())
+        sc = sc * scale
         vmask = (pos[None, None, :] < limit[:, :, None])[:, :, None, None]
         sc = torch.where(vmask, sc, torch.full_like(sc, NEG))
         m = sc.amax(dim=-1) if hi > lo else torch.full(

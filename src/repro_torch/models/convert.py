@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
 from repro_torch.models.layers import torch_dtype
 
 # parameters kept in float32 in every config: the SSM's
@@ -36,10 +37,12 @@ def _leaves(tree, fn, name=""):
 
 
 def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
-                      device="cpu") -> Dict[str, Any]:
-    """``repro`` params (numpy leaves) -> the port's params on ``device``."""
+                      device="cuda") -> Dict[str, Any]:
+    """``repro`` params (numpy leaves) -> the port's params on ``device``
+    (the card by default; without one it raises unless given
+    ``device="cpu"``)."""
     dt = torch_dtype(cfg)
-    dev = torch.device(device)
+    dev = resolve_device(device)
 
     def to_t(a, name):
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(

@@ -1,7 +1,8 @@
 """The port's decode attention (plain version, and the dispatch on the CPU)
 against ``repro``'s Pallas kernel ``decode_attention_pallas`` in interpret
 mode: paged through shuffled block tables with vacancies and contiguous,
-S in {1, 3}, ragged lengths including 0, garbage in pages no row owns.
+S in {1, 3}, windows of more than 16 query rows (Qh = 7, S in {3, 9}),
+ragged lengths including 0, garbage in pages no row owns.
 float32, atol 1e-5 (only the summation order differs).  The plain-score
 kernel's key-split algorithm (per-split partial states, then their merge)
 is held against both in plain PyTorch, and its plan shown to depend on
@@ -161,3 +162,33 @@ def test_key_split_plan_depends_on_shapes_only():
         want = decode_attention_ref(qt, kt, vt, lt, block_tables=tt)
         np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5,
                                    rtol=0)
+
+
+@pytest.mark.parametrize("paged", [True, False])
+@pytest.mark.parametrize("s_win", [3, 9])
+def test_wide_window_matches_jax_kernel(s_win, paged):
+    """Windows of more than 16 query rows: Qh = 7 (yi-34b's and
+    arctic-480b's 56 heads over 8 kv heads) at S = 3 and at a 9-token
+    verify window, 21 and 63 rows.  The plain version, and the key-split
+    partials merged over 8- and 24-key splits, against the Pallas kernel in
+    interpret mode."""
+    q, kp, vp, ln, tbl = paged_case(s_win, seed=70 + s_win, qh=7)
+    qt, kt, vt, lt, tt = map(torch.from_numpy, (q, kp, vp, ln, tbl))
+    if paged:
+        want = decode_attention_pallas(
+            jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+            jnp.asarray(ln), interpret=True, block_tables=jnp.asarray(tbl))
+    else:
+        kt, vt = gather_pages(kt, tt), gather_pages(vt, tt)
+        tt = None
+        want = decode_attention_pallas(
+            jnp.asarray(q), jnp.asarray(kt.numpy()), jnp.asarray(vt.numpy()),
+            jnp.asarray(ln), block_t=PS, interpret=True)
+    want = np.asarray(want)
+    got = decode_attention(qt, kt, vt, lt, block_tables=tt)
+    assert got.shape == (B, s_win, 2, 7, 32)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+    for split_len in (8, 24):
+        merged, _ = _split_merge(qt, kt, vt, lt, split_len, tt)
+        np.testing.assert_allclose(merged.numpy(), want, atol=1e-5, rtol=0)
+    assert torch.all(got[0, 0] == 0)             # row 0 sees no key at s=0

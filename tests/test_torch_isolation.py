@@ -80,10 +80,13 @@ def test_entry_points_refuse_without_a_card(small_tokenizer):
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models import build_model
+    from repro_torch.models.convert import params_from_numpy
     from repro_torch.serving import ServingEngine
     model = build_model(get_config("stablelm-1.6b", smoke=True))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         model.init()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        params_from_numpy({"stack": {}}, model.cfg)
     params = model.init(device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(model, params, small_tokenizer)

@@ -9,7 +9,8 @@ PyTorch:
 Tolerances: the argmax is bitwise (byte mask and packed mask alike);
 float32 attention atol 1e-5 (only the summation order differs), the split
 score of absorbed MLA atol = rtol = 1e-4 (576-long dot products in another
-order); bfloat16 attention atol = rtol = 2e-2 in float32, about one bf16
+order); bfloat16 attention, both scores (the split score's products on the
+tensor cores), atol = rtol = 2e-2 in float32, about one bf16
 ulp of the output; the two scans atol = rtol = 1e-4 in
 float32 (the kernels walk the recurrence step by step, the plain SSD scan
 is chunked, and the orders of the sums over the state differ)."""
@@ -126,14 +127,15 @@ def _long_case(case, s_win, qh, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("s_win,qh", [(1, 1), (3, 2)])
+@pytest.mark.parametrize("s_win,qh", [(1, 1), (3, 2), (3, 7), (9, 7)])
 @pytest.mark.parametrize("case", sorted(LONG_CASES))
 def test_decode_attention_kernel_matches_plain_long_rows(cuda_device, dtype,
                                                          tol, s_win, qh,
                                                          case):
     """Keys split across blocks: paged (NaN-poisoned pools bitwise equal to
     clean ones), two calls bitwise equal, rows that see no key exactly 0,
-    and contiguous over the gathered stripes."""
+    and contiguous over the gathered stripes.  Qh = 7 at S = 3 and 9 gives
+    windows of 21 and 63 query rows, in tiles of 16."""
     q, kp, vp, kn, vn, ln, tbl = _long_case(case, s_win, qh, cuda_device)
     q, kp, vp, kn, vn = (x.to(dtype) for x in (q, kp, vp, kn, vn))
     before = attn_kernel.decode_attention_cuda.launches
@@ -338,13 +340,17 @@ def test_masked_argmax_byte_kernel_matches_plain_and_packed(cuda_device, b, v,
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("dims", [(128, 512, 64), (4, 16, 8)])
-@pytest.mark.parametrize("s_win", [1, 2])
+@pytest.mark.parametrize("dims", [(128, 512, 64), (4, 16, 8), (3, 24, 16)])
+@pytest.mark.parametrize("s_win", [1, 2, 9])
 def test_split_decode_attention_kernel_matches_plain(cuda_device, dtype, tol,
                                                      dims, s_win):
     """The split-score kernel at deepseek-v3's width (128 heads, latent 512,
-    rope 64) and at a small one: paged with NaN in every page no row owns,
-    and contiguous over the gathered stripes."""
+    rope 64; at S = 9, 1152 query rows in 36 tiles of 32) and at small ones
+    (4 and 3 heads, not a multiple of the row tile; rope 8 and latent 24
+    padded to the tensor cores' depth of 16, latent 24 across two warps'
+    columns): paged with NaN in every page no row owns (bitwise equal to
+    clean pools), two calls bitwise equal, and contiguous over the gathered
+    stripes."""
     h, r, d2 = dims
     q, q2, lat, rp, ln, tbl = split_case(s_win, seed=50 + s_win, h=h, r=r,
                                          d2=d2, garbage=float("nan"))
@@ -365,13 +371,96 @@ def test_split_decode_attention_kernel_matches_plain(cuda_device, dtype, tol,
                                 q2=q2_d, k2=rp_c, block_tables=tbl_d)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
     assert torch.all(got[0, 0] == 0)             # row 0, position 0: no key
+    assert torch.equal(got, decode_attention(
+        q_d, lat_d, lat_d, ln_d, scale=scale, q2=q2_d, k2=dev(rp).to(dtype),
+        block_tables=tbl_d))
+    assert torch.equal(got, decode_attention(
+        q_d, lat_c, lat_c, ln_d, scale=scale, q2=q2_d, k2=rp_c,
+        block_tables=tbl_d))
+    for counters in attn_kernel._COUNTERS.values():  # left zero for the next
+        assert torch.count_nonzero(counters).item() == 0
     kd = gather_pages(lat_c, tbl_d).contiguous()
     k2d = gather_pages(rp_c, tbl_d).contiguous()
+    got_c = decode_attention(q_d, kd, kd, ln_d, scale=scale, q2=q2_d, k2=k2d)
     torch.testing.assert_close(
-        decode_attention(q_d, kd, kd, ln_d, scale=scale, q2=q2_d,
-                         k2=k2d).float(),
+        got_c.float(),
         decode_attention_ref(q_d, kd, kd, ln_d, scale=scale, q2=q2_d,
                              k2=k2d).float(), atol=tol, rtol=tol)
+    assert torch.equal(got_c, decode_attention(q_d, kd, kd, ln_d, scale=scale,
+                                               q2=q2_d, k2=k2d))
+
+
+# Split-score rows long enough for many key splits (64-key pages, up to
+# 1000 keys; lengths on page and split boundaries, and 0).
+SPLIT_LONG_LENS = [1000, 0, 160, 319]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s_win", [1, 9])
+@pytest.mark.parametrize("paged", [True, False])
+def test_split_decode_attention_kernel_long_rows(cuda_device, paged, s_win):
+    """bfloat16 at deepseek-v3's width over 16 pages of 64 keys a row: the
+    keys split across blocks (8 splits at S = 1), NaN-poisoned pools
+    bitwise equal to clean ones, two calls bitwise equal, empty rows 0."""
+    args = dict(h=128, r=512, d2=64, lens=SPLIT_LONG_LENS, ps=64, mp=16)
+    q, q2, lat, rp, ln, tbl = split_case(s_win, seed=90 + s_win,
+                                         garbage=float("nan"), **args)
+    clean = split_case(s_win, seed=90 + s_win, **args)
+
+    def dev(x, dtype=torch.bfloat16):
+        t = torch.from_numpy(x).to(cuda_device)
+        return t.to(dtype) if t.is_floating_point() else t
+    q_d, q2_d, ln_d, tbl_d = dev(q), dev(q2), dev(ln), dev(tbl)
+    lat_n, rp_n, lat_c, rp_c = dev(lat), dev(rp), dev(clean[2]), dev(clean[3])
+    if not paged:
+        lat_n = gather_pages(lat_c, tbl_d).contiguous()
+        rp_n = gather_pages(rp_c, tbl_d).contiguous()
+        lat_c, rp_c, tbl_d = lat_n, rp_n, None
+    scale = 1.0 / np.sqrt(192.0)
+
+    def call(lt, r):
+        return decode_attention(q_d, lt, lt, ln_d, scale=scale, q2=q2_d,
+                                k2=r, block_tables=tbl_d)
+    before = attn_kernel.decode_attention_split_cuda.launches
+    got = call(lat_n, rp_n)
+    assert attn_kernel.decode_attention_split_cuda.launches == before + 1
+    want = decode_attention_ref(q_d, lat_c, lat_c, ln_d, scale=scale,
+                                q2=q2_d, k2=rp_c, block_tables=tbl_d)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+    assert torch.equal(got, call(lat_n, rp_n))
+    assert torch.equal(got, call(lat_c, rp_c))
+    assert torch.all(got[1, 0] == 0) and got[0, 0].abs().sum() > 0
+    for counters in attn_kernel._COUNTERS.values():
+        assert torch.count_nonzero(counters).item() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [True, False])
+def test_split_decode_attention_kernel_reads_nothing_to_host(cuda_device,
+                                                             paged):
+    """bfloat16 at deepseek-v3's width, keys split across blocks (scratch
+    allocated, counters taken): a call makes no host sync."""
+    q, q2, lat, rp, ln, tbl = [
+        torch.from_numpy(x).to(cuda_device) for x in split_case(
+            1, seed=95, h=128, r=512, d2=64, lens=SPLIT_LONG_LENS, ps=64,
+            mp=16)]
+    q, q2, lat, rp = (x.to(torch.bfloat16) for x in (q, q2, lat, rp))
+    if not paged:
+        lat = gather_pages(lat, tbl).contiguous()
+        rp = gather_pages(rp, tbl).contiguous()
+        tbl = None
+    kw = dict(scale=0.07, q2=q2, k2=rp, block_tables=tbl)
+    decode_attention(q, lat, lat, ln, **kw)      # build and load
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = decode_attention(q, lat, lat, ln, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = decode_attention_ref(q, lat, lat, ln, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
 
 
 @pytest.mark.cuda

@@ -3,10 +3,13 @@ weights and inputs: ``mla_compress``, full MLA (prefill), absorbed MLA
 (decode) on its plain route and on its kernel route (the JAX split-score
 kernel in interpret mode, the port's plain version on the CPU), the
 split-score decode attention itself (paged and contiguous, S in {1, 2},
-split == concatenated), and the ``mla`` and ``mla-moe`` model configs
+split == concatenated), the bfloat16 kernel's key-split algorithm in plain
+PyTorch (partials and merge, S in {1, 2, 9}, its plan from shapes alone),
+and the ``mla`` and ``mla-moe`` model configs
 through prefill and dense, ragged and paged decode.  float32; atol = rtol
 = 1e-4 (the two frameworks sum the matmuls in other orders)."""
 import dataclasses
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -22,12 +25,14 @@ from repro_torch.configs.base import MLAConfig as TMLAConfig
 from repro_torch.configs.base import ModelConfig as TModelConfig
 from repro_torch.configs.base import MoEConfig as TMoEConfig
 from repro_torch.kernels.decode_attention.ops import decode_attention
-from repro_torch.kernels.decode_attention.ref import (decode_attention_ref,
-                                                      gather_pages)
+from repro_torch.kernels.decode_attention.ref import (
+    MAX_SCORE_SPLIT_PAGES, MAX_SCORE_SPLITS, SCORE_TILE_KEYS,
+    decode_attention_ref, gather_pages, key_split_partials, merge_key_splits,
+    split_score_plan)
 from repro_torch.models import build_model as t_build_model
 from repro_torch.models import layers as tl
 from repro_torch.models.convert import params_from_numpy
-from torch_cases import PS, split_case
+from torch_cases import MP, PS, split_case
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 BASE = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=4, d_ff=128,
@@ -56,7 +61,8 @@ def _pair(arch="mla-moe", kernels=False):
                         **kw)
     m, tm = build_model(cfg), t_build_model(tcfg)
     params = m.init(jax.random.PRNGKey(0))
-    tparams = params_from_numpy(jax.tree.map(np.asarray, params), tcfg)
+    tparams = params_from_numpy(jax.tree.map(np.asarray, params), tcfg,
+                                device="cpu")
     return m, params, tm, tparams
 
 
@@ -205,6 +211,110 @@ def test_split_equals_concatenated():
         torch.cat([t(lat), t(rp)], -1), t(lat), t(ln), scale=0.3,
         block_tables=t(tbl))
     torch.testing.assert_close(split, cat, atol=1e-5, rtol=1e-5)
+
+
+# Lengths for the split-score key-split cases, over PS = 8-key pages and
+# MP * PS = 64 keys of capacity: 0 (no key), 16 and 32 (on page and split
+# boundaries), 7 (every split after the first wholly past the frontier);
+# and windows from 15, 30 and 55 that cross split boundaries (55 + 8 = 63
+# keys at S = 9, one short of the capacity).
+SCORE_LENS = {"boundaries": [0, 16, 32, 7], "windows": [0, 15, 30, 55]}
+
+
+def _score_split_merge(q, q2, lat, rp, ln, split_len, scale, tbl=None):
+    cap = lat.shape[1] * (1 if tbl is None else tbl.shape[1])
+    n_split = -(-cap // split_len)
+    m, l, acc = key_split_partials(q, lat, lat, ln, n_split, split_len,
+                                   scale=scale, block_tables=tbl, q2=q2,
+                                   k2=rp)
+    assert m.shape[0] == n_split
+    return merge_key_splits(m, l, acc, q.dtype), (m, l, acc)
+
+
+@pytest.mark.parametrize("lens", sorted(SCORE_LENS))
+@pytest.mark.parametrize("s_win", [1, 2, 9])
+@pytest.mark.parametrize("paged", [True, False])
+def test_split_score_key_split_matches_jax_kernel(paged, s_win, lens):
+    """The split score's partials over 8-, 16-, 32- and 64-key splits,
+    merged, equal the Pallas kernel in interpret mode (and the plain
+    version); a split wholly past a row's frontier holds the empty state."""
+    q, q2, lat, rp, ln, tbl = split_case(s_win, seed=80 + s_win, h=3,
+                                         lens=SCORE_LENS[lens])
+    scale = 0.19
+    t = torch.from_numpy
+    tt = t(tbl)
+    if not paged:
+        lat = gather_pages(t(lat), tt).numpy()
+        rp = gather_pages(t(rp), tt).numpy()
+        tt = None
+    kw = dict(block_tables=jnp.asarray(tbl)) if paged else dict(block_t=PS)
+    want = np.asarray(decode_attention_pallas(
+        jnp.asarray(q), jnp.asarray(lat), jnp.asarray(lat), jnp.asarray(ln),
+        interpret=True, scale=scale, q2=jnp.asarray(q2), k2=jnp.asarray(rp),
+        **kw))
+    ref = decode_attention_ref(t(q), t(lat), t(lat), t(ln), scale=scale,
+                               q2=t(q2), k2=t(rp), block_tables=tt)
+    np.testing.assert_allclose(ref.numpy(), want, atol=1e-5, rtol=0)
+    for split_len in (8, 16, 32, 64):
+        got, (m, l, acc) = _score_split_merge(t(q), t(q2), t(lat), t(rp),
+                                              t(ln), split_len, scale, tt)
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+        assert torch.all(got[0, 0] == 0)         # row 0 sees no key at s=0
+        front = np.minimum(ln + s_win - 1, MP * PS)
+        for j in range(m.shape[0]):
+            dead = torch.from_numpy(j * split_len >= front)
+            assert torch.all(m[j][dead] == -1e30)
+            assert torch.all(l[j][dead] == 0)
+            assert torch.all(acc[j][dead] == 0)
+
+
+@pytest.mark.parametrize("b,g,rows,ps,n_tiles,paged,want", [
+    (4, 1, 128, 64, 16, True, (8, 128)),     # deepseek-v3's decode, main
+    (4, 1, 128, 64, 20, True, (8, 160)),     # 1000 keys a row
+    (4, 1, 128, 64, 256, True, (8, 2048)),   # 16384 keys a row
+    (4, 1, 1152, 64, 16, True, (1, 1024)),   # a 9-token window: 144 blocks
+    (4, 1, 96, 64, 16, True, (11, 96)),      # 12 blocks a split
+    (4, 1, 6, 8, 8, True, (2, 32)),          # the small test case
+    (4, 1, 128, 1, 8192, True, (18, 480)),   # one-key pages: span capped
+    (1, 1, 16, 1, 4096, True, (64, 64)),     # one block a split: 64 splits
+    (2, 1, 16, 4096, 1, False, (64, 64)),    # contiguous: split count capped
+])
+def test_split_score_plan(b, g, rows, ps, n_tiles, paged, want):
+    """The plan covers the capacity in whole tiles, spans at most
+    MAX_SCORE_SPLIT_PAGES table entries a split, takes at most
+    MAX_SCORE_SPLITS splits, and aims for many blocks."""
+    n_split, split_len = split_score_plan(b, g, rows, ps, n_tiles, paged)
+    assert (n_split, split_len) == want
+    cap = ps * n_tiles
+    assert split_len % SCORE_TILE_KEYS == 0
+    assert (n_split - 1) * split_len < cap <= n_split * split_len
+    assert n_split <= MAX_SCORE_SPLITS
+    if paged:
+        assert (split_len - 1) // ps + 2 <= MAX_SCORE_SPLIT_PAGES
+
+
+def test_split_score_plan_depends_on_shapes_only():
+    """The plan takes the shapes and nothing else, so the card never has to
+    report the lengths: rows of any lengths get one plan, and its partials
+    merge to the plain version for each."""
+    params = list(inspect.signature(split_score_plan).parameters)
+    assert params == ["b", "g", "rows", "page_size", "n_tiles", "paged"]
+    plan = split_score_plan(4, 1, 2 * 3, PS, MP, True)
+    assert plan[0] > 1
+    rng = np.random.default_rng(11)
+    for lens in ([0, 0, 0, 0], [51, 25, 1, 1], [63, 1, 32, 33],
+                 list(rng.integers(0, 63, 4))):
+        q, q2, lat, rp, ln, tbl = split_case(2, seed=12, h=3, lens=lens)
+        assert split_score_plan(q.shape[0], q.shape[2],
+                                q.shape[1] * q.shape[3], lat.shape[1],
+                                tbl.shape[1], True) == plan
+        t = torch.from_numpy
+        got, _ = _score_split_merge(t(q), t(q2), t(lat), t(rp), t(ln),
+                                    plan[1], 0.25, t(tbl))
+        want = decode_attention_ref(t(q), t(lat), t(lat), t(ln), scale=0.25,
+                                    q2=t(q2), k2=t(rp), block_tables=t(tbl))
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5,
+                                   rtol=0)
 
 
 def _toks(b, s, seed=1):

@@ -28,7 +28,8 @@ def _pair(kernels: bool):
                         use_pallas_kernels=kernels)
     m, tm = build_model(cfg), t_build_model(tcfg)
     params = m.init(jax.random.PRNGKey(0))
-    tparams = params_from_numpy(jax.tree.map(np.asarray, params), tcfg)
+    tparams = params_from_numpy(jax.tree.map(np.asarray, params), tcfg,
+                                device="cpu")
     return m, params, tm, tparams
 
 

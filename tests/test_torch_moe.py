@@ -38,7 +38,8 @@ def _moe_pair(**moe):
     """(JAX cfg, JAX layer-0 MoE params, port cfg, port params)."""
     cfg, tcfg = _cfgs(**moe)
     params = build_model(cfg).init(jax.random.PRNGKey(0))
-    tparams = params_from_numpy(jax.tree.map(np.asarray, params), tcfg)
+    tparams = params_from_numpy(jax.tree.map(np.asarray, params), tcfg,
+                                device="cpu")
     jp = jax.tree.map(lambda a: a[0], params["stack"]["group"]["b0"]["moe"])
     return cfg, jp, tcfg, tparams["stack"]["group"]["b0"][0]["moe"]
 
@@ -112,7 +113,8 @@ def test_gqa_moe_model_matches(ragged):
     cfg, tcfg = _cfgs(**moe)
     m, tm = build_model(cfg), t_build_model(tcfg)
     params = m.init(jax.random.PRNGKey(1))
-    tparams = params_from_numpy(jax.tree.map(np.asarray, params), tcfg)
+    tparams = params_from_numpy(jax.tree.map(np.asarray, params), tcfg,
+                                device="cpu")
     toks = np.random.default_rng(2).integers(0, 128, (2, 12)).astype(
         np.int32)
     c1, c2 = m.init_cache(2, 32), tm.init_cache(2, 32, device="cpu")
@@ -134,7 +136,8 @@ def test_router_stays_float32_under_bfloat16():
     cfg, tcfg = _cfgs(**moe)
     params = build_model(cfg).init(jax.random.PRNGKey(0))
     tcfg_bf = dataclasses.replace(tcfg, dtype="bfloat16")
-    tp = params_from_numpy(jax.tree.map(np.asarray, params), tcfg_bf)
+    tp = params_from_numpy(jax.tree.map(np.asarray, params), tcfg_bf,
+                           device="cpu")
     layer = tp["stack"]["group"]["b0"][0]["moe"]
     assert layer["router"].dtype == torch.float32
     assert layer["w_gate"].dtype == torch.bfloat16

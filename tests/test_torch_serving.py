@@ -50,7 +50,8 @@ def engines(small_tokenizer, json_grammar):
                             use_pallas_kernels=kernels)
         m = build_model(cfg)
         params = m.init(jax.random.PRNGKey(0))
-        tparams = params_from_numpy(jax.tree.map(np.asarray, params), tcfg)
+        tparams = params_from_numpy(jax.tree.map(np.asarray, params), tcfg,
+                                    device="cpu")
         eng = ServingEngine(m, params, tok, json_grammar,
                             EngineConfig(mode="domino", max_tokens=12),
                             max_len=256)
@@ -166,7 +167,7 @@ def recurrent_engines(small_tokenizer, json_grammar):
             tcfg = TModelConfig(ssm=TSSMConfig(**f["ssm"]),
                                 use_pallas_kernels=kernels, **kw)
             tparams = params_from_numpy(jax.tree.map(np.asarray, params),
-                                        tcfg)
+                                        tcfg, device="cpu")
             ports[kernels] = TServingEngine(
                 t_build_model(tcfg), tparams, tok, json_grammar,
                 TEngineConfig(mode="domino", max_tokens=10), max_len=256,
@@ -240,7 +241,7 @@ def latent_engines(small_tokenizer, json_grammar):
             if params is None:
                 params = m.init(jax.random.PRNGKey(2))
             tparams = params_from_numpy(jax.tree.map(np.asarray, params),
-                                        tcfg)
+                                        tcfg, device="cpu")
             eng = ServingEngine(m, params, tok, json_grammar,
                                 EngineConfig(mode="domino", max_tokens=10),
                                 max_len=256)

@@ -216,7 +216,8 @@ def _pair(family, kernels):
     cfg, tcfg = _cfgs(family, kernels)
     m, tm = build_model(cfg), t_build_model(tcfg)
     params = m.init(jax.random.PRNGKey(0))
-    tparams = params_from_numpy(jax.tree.map(np.asarray, params), tcfg)
+    tparams = params_from_numpy(jax.tree.map(np.asarray, params), tcfg,
+                                device="cpu")
     return m, params, tm, tparams
 
 
@@ -269,7 +270,7 @@ def test_converted_params_keep_float32_ssm_leaves_and_shared_block():
     cfg, tcfg = _cfgs("hybrid", False, dtype="bfloat16")
     params = build_model(cfg).init(jax.random.PRNGKey(0))
     tree = jax.tree.map(lambda a: np.asarray(a, dtype=np.float32), params)
-    tp = params_from_numpy(tree, tcfg)
+    tp = params_from_numpy(tree, tcfg, device="cpu")
     mamba = tp["stack"]["group"]["b0"][1]["mamba"]
     for name in ("A_log", "D", "dt_bias"):
         assert mamba[name].dtype == torch.float32

@@ -84,21 +84,22 @@ def ssd_inputs(b, s, h, d, n, seed):
             rng.normal(size=(b, h, d, n)).astype(np.float32))
 
 
-def split_case(s_win, seed, h=QH, r=16, d2=8, garbage=1e3):
+def split_case(s_win, seed, h=QH, r=16, d2=8, garbage=1e3, lens=LENS,
+               ps=PS, mp=MP):
     """Absorbed-MLA split-score inputs over one KV group: q (B,S,1,h,r),
-    q2 (B,S,1,h,d2), a latent pool (1 + B*MP, PS, 1, r) that is both key
-    and value, a rope pool (1 + B*MP, PS, 1, d2), lengths (B,) and a
-    shuffled block table (B, MP) with -1 vacancies; pages no row owns hold
-    ``garbage``."""
+    q2 (B,S,1,h,d2), a latent pool (1 + B*mp, ps, 1, r) that is both key
+    and value, a rope pool (1 + B*mp, ps, 1, d2), lengths (B,) = ``lens``
+    and a shuffled block table (B, mp) with -1 vacancies; pages no row owns
+    hold ``garbage``."""
     rng = np.random.default_rng(seed)
-    n_pages = 1 + B * MP
-    lat = rng.normal(size=(n_pages, PS, 1, r)).astype(np.float32)
-    rp = rng.normal(size=(n_pages, PS, 1, d2)).astype(np.float32)
+    n_pages = 1 + B * mp
+    lat = rng.normal(size=(n_pages, ps, 1, r)).astype(np.float32)
+    rp = rng.normal(size=(n_pages, ps, 1, d2)).astype(np.float32)
     perm = list(rng.permutation(np.arange(1, n_pages)))
-    tbl = np.full((B, MP), -1, np.int32)
+    tbl = np.full((B, mp), -1, np.int32)
     owned = []
-    for i, ln in enumerate(LENS):
-        n = -(-(ln + s_win - 1) // PS)
+    for i, ln in enumerate(lens):
+        n = -(-(ln + s_win - 1) // ps)
         tbl[i, :n] = perm[:n]
         owned += perm[:n]
         del perm[:n]
@@ -108,7 +109,7 @@ def split_case(s_win, seed, h=QH, r=16, d2=8, garbage=1e3):
     rp[foreign] = -garbage
     q = rng.normal(size=(B, s_win, 1, h, r)).astype(np.float32)
     q2 = rng.normal(size=(B, s_win, 1, h, d2)).astype(np.float32)
-    return q, q2, lat, rp, np.asarray(LENS, np.int32), tbl
+    return q, q2, lat, rp, np.asarray(lens, np.int32), tbl
 
 
 def byte_mask_case(b, v, seed):
