@@ -32,7 +32,9 @@ non-zero without the final result line):
     the recurrence step by step, the plain SSD scan is chunked, and the
     sums over the state run in other orders), at the serving paths' decode
     and prefill shapes, with nonzero h0, and two calls that carry the
-    state against one call over the whole sequence;
+    state against one call over the whole sequence (bitwise for the Mamba1
+    scan); the Mamba1 scan also over a 2048-step prompt (timed beside its
+    bound) and at a ragged width of 130 channels with N = 5 and 12;
  5. serving, at its published width with random weights, through
     ``ServingEngine.generate_batch`` with the DOMINO JSON grammar, 4
     requests in 4 slots, 32 tokens each: stablelm-1.6b over a paged KV
@@ -170,7 +172,8 @@ def phase_env(torch):
             log(f"[build] {line.strip()}")
     for fn, info in _ptxas_by_function(build.build_log).items():
         if "decode_attention_kernel" in fn \
-                or "decode_attention_split_mma_kernel" in fn:
+                or "decode_attention_split_mma_kernel" in fn \
+                or "mamba_scan_kernelILi4E" in fn:
             log(f"[build] {_demangle(fn)}: {info}")
     return card
 
@@ -672,21 +675,32 @@ def _scan_inputs(torch, gen, shapes, scales):
 
 def phase_scans(torch):
     """Both scan kernels against their plain versions at the serving
-    paths' shapes; returns {kernel: {"long": (ms, plain ms, bound ms)}} at
-    the longest prompt shape."""
+    paths' shapes (and, for the Mamba1 scan, a 2048-step prompt and ragged
+    widths with N = 5 and 12); returns {kernel: {"long": {...}}} at a
+    300-step prompt, and the Mamba1 scan's "long_cold" at 2048 steps.  A
+    Mamba1 call split in two and carried must give one call's bits."""
     from repro_torch.kernels.mamba_scan.kernel import mamba_scan_cuda
     from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
     from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
+    # the long prompt and the ragged widths draw from a generator of their
+    # own, so the serving shapes and the SSD scan's keep their inputs
+    extra = torch.Generator(device="cuda")
+    extra.manual_seed(8)
     out = {}
-    # falcon-mamba-7b: d_inner 8192, N 16; decode B=4, prefill B=1
-    d, n = 8192, 16
-    for b, s in ((4, 1), (1, 1), (1, 37), (1, 128), (1, 300)):
+    # falcon-mamba-7b: d_inner 8192, N 16; decode B=4, prefill B=1, and a
+    # 2048-step prompt (201 MB of dt, x and y: four times the L2); then
+    # ragged widths with N = 5 (the scalar state path) and 12 (padding lanes)
+    out["mamba_scan"] = {}
+    for b, s, d, n, g in ((4, 1, 8192, 16, gen), (1, 1, 8192, 16, gen),
+                          (1, 37, 8192, 16, gen), (1, 128, 8192, 16, gen),
+                          (1, 300, 8192, 16, gen), (1, 2048, 8192, 16, extra),
+                          (2, 33, 130, 5, extra), (2, 33, 130, 12, extra)):
         dt, x, bm, cm, a, h0 = _scan_inputs(
-            torch, gen, [(b, s, d), (b, s, d), (b, s, n), (b, s, n), (d, n),
-                         (b, d, n)], [0.1, None, None, None, -1.0, None])
+            torch, g, [(b, s, d), (b, s, d), (b, s, n), (b, s, n), (d, n),
+                       (b, d, n)], [0.1, None, None, None, -1.0, None])
         got = mamba_scan_cuda(dt, x, bm, cm, a, h0)
         want = mamba_scan_ref(dt, x, bm, cm, a, h0)
         torch.cuda.synchronize()
@@ -699,18 +713,29 @@ def phase_scans(torch):
             y2, h2 = mamba_scan_cuda(*[t[:, c:].contiguous()
                                        for t in (dt, x, bm, cm)], a, h1)
             torch.cuda.synchronize()
-            e2 = _scan_err(torch, (torch.cat([y1, y2], 1), h2), got,
-                           f"mamba_scan continuity B={b} S={s}")
-            cont = f", {c}+{s - c} steps carried vs one call err {e2:.2e}"
-        k_ms = time_ms(torch, lambda: mamba_scan_cuda(dt, x, bm, cm, a, h0))
+            if not (torch.equal(torch.cat([y1, y2], 1), got[0])
+                    and torch.equal(h2, got[1])):
+                raise AssertionError(f"mamba_scan B={b} S={s} d={d} N={n}: "
+                                     f"{c}+{s - c} steps carried differ "
+                                     "from one call")
+            cont = f", {c}+{s - c} steps carried bitwise equal to one call"
+        if d != 8192:
+            log(f"[scan] mamba_scan B={b} S={s} d={d} N={n}, nonzero h0: "
+                f"err {err:.2e} (tol {SCAN_TOL}){cont}")
+            continue
+        k_ms = time_ms(torch, lambda: mamba_scan_cuda(dt, x, bm, cm, a, h0),
+                       n=20 if s > 300 else 50)
         p_ms = time_ms(torch, lambda: mamba_scan_ref(dt, x, bm, cm, a, h0),
-                       n=5 if s > 1 else 50)
+                       n=3 if s > 300 else 5 if s > 1 else 50)
         bnd, by = _mamba_bound(dt, n)
         log(f"[scan] mamba_scan B={b} S={s} d={d} N={n}, nonzero h0: err "
             f"{err:.2e} (tol {SCAN_TOL}){cont}; kernel {k_ms:.4f} ms, plain "
             f"{p_ms:.4f} ms, bound {bnd:.5f} ms by {by}")
-        out["mamba_scan"] = {"long": (k_ms, p_ms, bnd),
-                             "long_shape": f"B={b} S={s} d={d} N={n}"}
+        key = {300: "long", 2048: "long_cold"}.get(s)
+        if key:
+            out["mamba_scan"][key] = {
+                "shape": f"B={b} S={s} d={d} N={n}", "ms": k_ms,
+                "plain_ms": p_ms, "bound_ms": bnd}
     # zamba2-1.2b: 64 heads of 64, N 64; decode B=4, prefill B=1
     h, hd, n = 64, 64, 64
     for b, s in ((4, 1), (1, 37), (1, 128), (1, 300)):
@@ -742,8 +767,9 @@ def phase_scans(torch):
             f"err {err:.2e} (tol {SCAN_TOL}){cont}; kernel {k_ms:.4f} ms, "
             f"plain {p_ms:.4f} ms (chunk {chunk}), bound {bnd:.5f} ms by "
             f"{by}")
-        out["ssd_scan"] = {"long": (k_ms, p_ms, bnd),
-                           "long_shape": f"B={b} S={s} H={h} D={hd} N={n}"}
+        out["ssd_scan"] = {"long": {
+            "shape": f"B={b} S={s} H={h} D={hd} N={n}", "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": bnd}}
     return out
 
 
@@ -1378,8 +1404,7 @@ def phase_kernels(torch, paths, scans, attn_long, split_long, bytes_long):
         torch.cuda.synchronize()
         err = _scan_err(torch, got, want, f"{name} on {arch} inputs")
         bnd, bnd_by = bound(args)
-        long_ms, long_plain, long_bound = scans[name]["long"]
-        out.append({
+        entry = {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": ("src/repro/kernels/mamba_scan/kernel.py:62"
@@ -1390,9 +1415,9 @@ def phase_kernels(torch, paths, scans, attn_long, split_long, bytes_long):
             "shape": f"{shape_of(args)} ({arch} decode)",
             "ms": time_ms(torch, lambda: fn(*args)),
             "plain_ms": time_ms(torch, lambda: ref(*args)),
-            "bound_ms": bnd, "bound_by": bnd_by, "library_ms": None,
-            "long": {"shape": scans[name]["long_shape"], "ms": long_ms,
-                     "plain_ms": long_plain, "bound_ms": long_bound}})
+            "bound_ms": bnd, "bound_by": bnd_by, "library_ms": None}
+        entry.update(scans[name])
+        out.append(entry)
     for k in out:
         lib = ("" if k["library_ms"] is None
                else f", library {k['library_ms']:.4f} ms")

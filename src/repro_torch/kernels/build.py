@@ -111,7 +111,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.repro_masked_argmax_bytes.argtypes = [
         _P, ctypes.c_longlong, _P, ctypes.c_longlong, _I, _I, _P, _P, _P]
     lib.repro_masked_argmax_bytes.restype = _I
-    lib.repro_mamba_scan.argtypes = [_P] * 8 + [_I] * 4 + [_P]
+    lib.repro_mamba_scan.argtypes = [_P] * 8 + [_I] * 7 + [_P]
     lib.repro_mamba_scan.restype = _I
     lib.repro_ssd_scan.argtypes = [_P] * 8 + [_I] * 5 + [_P]
     lib.repro_ssd_scan.restype = _I

@@ -6,14 +6,19 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.mamba_scan.ref import scan_plan
 
-MAX_STATE = 64      # N values a thread keeps in registers
+MAX_STATE = 64      # N the kernel takes: 16 lanes of 4 states
 
 
 def mamba_scan_cuda(dt: torch.Tensor, x: torch.Tensor, bmat: torch.Tensor,
                     cmat: torch.Tensor, a: torch.Tensor, h0: torch.Tensor):
     """dt/x (B,S,d); bmat/cmat (B,S,N); a (d,N); h0 (B,d,N), all float32,
-    contiguous, on one CUDA device -> (y (B,S,d), hT (B,d,N)) float32."""
+    contiguous, on one CUDA device -> (y (B,S,d), hT (B,d,N)) float32.
+
+    One launch, laid out by ``scan_plan`` from the shapes alone; it
+    allocates nothing but the two outputs and reads nothing back to the
+    host, so a CUDA graph can capture it."""
     args = (("dt", dt), ("x", x), ("bmat", bmat), ("cmat", cmat), ("a", a),
             ("h0", h0))
     dev = dt.device
@@ -41,11 +46,12 @@ def mamba_scan_cuda(dt: torch.Tensor, x: torch.Tensor, bmat: torch.Tensor,
     h_t = torch.empty((b, d, n), dtype=torch.float32, device=dev)
     if b == 0 or d == 0:
         return y, h_t
+    lanes, chans, tile = scan_plan(s, d, n)
     lib = build.library()
     rc = lib.repro_mamba_scan(
         dt.data_ptr(), x.data_ptr(), bmat.data_ptr(), cmat.data_ptr(),
         a.data_ptr(), h0.data_ptr(), y.data_ptr(), h_t.data_ptr(), b, s, d,
-        n, torch.cuda.current_stream(dev).cuda_stream)
+        n, lanes, chans, tile, torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "mamba_scan")
     mamba_scan_cuda.launches += 1
     return y, h_t

@@ -1,8 +1,8 @@
 """Guards that keep the PyTorch port honest:
 
  - every ``repro_torch`` module imports in a process where ``jax`` and
-   ``repro`` cannot be imported, and no source line of the port or of
-   ``chip_smoke.py`` imports either;
+   ``repro`` cannot be imported, and no source line of the port, of
+   ``chip_smoke.py`` or of the port's timing tools imports either;
  - the copied framework-free modules equal their ``repro`` originals after
    the ``repro.`` -> ``repro_torch.`` import rewrite, so they cannot drift;
  - the entry points refuse to run without ``device="cpu"`` when no card is
@@ -61,6 +61,19 @@ def test_no_source_line_imports_jax_or_repro():
            for f in files
            for i, line in enumerate(f.read_text().splitlines(), 1)
            if IMPORT_RE.match(line)]
+    assert not bad, "\n".join(bad)
+
+
+@pytest.mark.parametrize("tool", ["kernel_variants.py",
+                                  "time_decode_attention.py",
+                                  "time_split_attention.py",
+                                  "time_mamba_scan.py"])
+def test_port_tool_imports_no_jax_or_repro(tool):
+    """The port's timing tools run on the card's machine, which has no
+    JAX: no line of theirs imports it or the JAX package."""
+    lines = (ROOT / "tools" / tool).read_text().splitlines()
+    bad = [f"{tool}:{i}: {line.strip()}"
+           for i, line in enumerate(lines, 1) if IMPORT_RE.match(line)]
     assert not bad, "\n".join(bad)
 
 

@@ -219,15 +219,26 @@ def test_paged_decode_kernel_route_matches_plain_route(cuda_device):
     assert attn_kernel.decode_attention_cuda.launches == before + 3 * 2
 
 
+def _mamba_case(device, b, s, d, n):
+    return [torch.from_numpy(x).to(device)
+            for x in mamba_inputs(b, s, d, n, seed=s + d)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s,d,n", [(4, 1, 8192, 16), (1, 37, 8192, 16),
-                                     (2, 100, 48, 8), (1, 300, 256, 64),
-                                     (3, 5, 130, 5)])
+@pytest.mark.parametrize("b,s,d,n", [
+    (4, 1, 8192, 16), (1, 37, 8192, 16), (2, 100, 48, 8), (1, 300, 256, 64),
+    (3, 5, 130, 5),
+    # falcon-mamba-7b's prefill of one token and a 2048-step prompt
+    (1, 1, 8192, 16), (1, 2048, 8192, 16),
+    # ragged: 130 channels, the scalar state path (N = 5), padding lanes
+    # (N = 12), sixteen lanes (N = 64); one lane a channel (N = 4)
+    (2, 33, 130, 5), (1, 37, 130, 5), (2, 33, 130, 12), (1, 37, 130, 12),
+    (2, 33, 130, 64), (1, 37, 130, 64), (2, 45, 200, 4)])
 def test_mamba_scan_kernel_matches_plain(cuda_device, b, s, d, n):
-    """Nonzero h0, ragged channel tiles, N below and at the limit; and two
+    """Nonzero h0, ragged channel blocks and time tiles, N below, between
+    and at the limit, a prompt of 2048 steps; one launch a call; and two
     calls that carry hT equal one call."""
-    inp = [torch.from_numpy(x).to(cuda_device)
-           for x in mamba_inputs(b, s, d, n, seed=s + d)]
+    inp = _mamba_case(cuda_device, b, s, d, n)
     before = mamba_kernel.mamba_scan_cuda.launches
     y, h = mamba_scan(*inp)
     assert mamba_kernel.mamba_scan_cuda.launches == before + 1
@@ -245,6 +256,113 @@ def test_mamba_scan_kernel_matches_plain(cuda_device, b, s, d, n):
                             a, h1)
         torch.testing.assert_close(torch.cat([y1, y2], 1), y, **SCAN_TOL)
         torch.testing.assert_close(h2, h, **SCAN_TOL)
+
+
+@pytest.mark.cuda
+def test_mamba_scan_kernel_factor_is_torch_exp(cuda_device):
+    """With h0 = 1, x = 0 and dt = 1 one step leaves hT = the kernel's
+    factor exp(A), which must be the plain version's torch.exp bit for bit
+    (a float32 in every 251 of (-ln 2, 0], where the decays near 1 that
+    carry their rounding over many steps lie, and 2^20 values down to
+    A = -80): a factor that rounds otherwise drifts from the plain
+    version over a long prompt."""
+    top = int(torch.tensor(0.6931472, dtype=torch.float32)
+              .view(torch.int32))
+    near = -torch.arange(0, top, 251, dtype=torch.int32).view(torch.float32)
+    far = -torch.linspace(0.6931472, 80.0, 1 << 20, dtype=torch.float64) \
+        .float()
+    for a_vals in (near, far):
+        a = torch.zeros(-(-a_vals.numel() // 16) * 16, dtype=torch.float32)
+        a[:a_vals.numel()] = a_vals
+        a = a.view(-1, 16).to(cuda_device)
+        d = a.shape[0]
+        dt = torch.ones((1, 1, d), device=cuda_device)
+        x = torch.zeros((1, 1, d), device=cuda_device)
+        bc = torch.zeros((1, 1, 16), device=cuda_device)
+        h0 = torch.ones((1, d, 16), device=cuda_device)
+        _, factor = mamba_scan(dt, x, bc, bc, a, h0)
+        assert torch.equal(factor, torch.exp(a)[None])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,d,n", [(4, 1, 8192, 16), (1, 300, 8192, 16),
+                                     (2, 33, 130, 5), (1, 37, 130, 64)])
+def test_mamba_scan_kernel_repeats_bitwise(cuda_device, b, s, d, n):
+    """Two calls on the same inputs give the same bits (a fixed reduction
+    order, no atomics)."""
+    inp = _mamba_case(cuda_device, b, s, d, n)
+    y1, h1 = mamba_scan(*inp)
+    y2, h2 = mamba_scan(*inp)
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,d,n,cut", [
+    (1, 37, 8192, 16, 18), (1, 300, 8192, 16, 150), (2, 2, 130, 12, 1),
+    (2, 3, 130, 12, 1), (2, 33, 130, 5, 16), (1, 37, 130, 12, 18),
+    (2, 33, 130, 64, 16), (1, 37, 130, 64, 5)])
+def test_mamba_scan_kernel_carries_bitwise(cuda_device, b, s, d, n, cut):
+    """A call split in two that carries hT gives one call's bits: the
+    steps round alike whatever tile they fall in, and a one-step call (no
+    staging, a butterfly over the lanes) sums y as a staged call does."""
+    dt, x, bm, cm, a, h0 = _mamba_case(cuda_device, b, s, d, n)
+    y, h = mamba_scan(dt, x, bm, cm, a, h0)
+    y1, h1 = mamba_scan(*[t[:, :cut].contiguous() for t in (dt, x, bm, cm)],
+                        a, h0)
+    y2, h2 = mamba_scan(*[t[:, cut:].contiguous() for t in (dt, x, bm, cm)],
+                        a, h1)
+    assert torch.equal(torch.cat([y1, y2], 1), y)
+    assert torch.equal(h2, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 37])
+def test_mamba_scan_kernel_reads_nothing_to_host(cuda_device, s):
+    """A call (its plan chosen from shapes) makes no host sync."""
+    inp = _mamba_case(cuda_device, 4 if s == 1 else 1, s, 8192, 16)
+    mamba_scan(*inp)   # build and load
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, h = mamba_scan(*inp)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    y_p, h_p = mamba_scan_ref(*inp)
+    torch.testing.assert_close(y, y_p, **SCAN_TOL)
+    torch.testing.assert_close(h, h_p, **SCAN_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,d,n", [(4, 1, 8192, 16), (1, 37, 8192, 16),
+                                     (2, 33, 130, 5)])
+def test_mamba_scan_kernel_replays_in_cuda_graph(cuda_device, b, s, d, n):
+    """A call captured in a CUDA graph (it allocates only its outputs and
+    reads nothing back) replays to the eager call's bits, also after its
+    inputs are overwritten in place and restored."""
+    inp = _mamba_case(cuda_device, b, s, d, n)
+    want = mamba_scan(*inp)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        mamba_scan(*inp)   # warm up on the capturing stream
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = mamba_kernel.mamba_scan_cuda.launches
+    with torch.cuda.graph(graph):
+        got = mamba_scan(*inp)
+    assert mamba_kernel.mamba_scan_cuda.launches == before + 1
+    saved = [t.clone() for t in inp]
+    for t in inp:
+        t.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    zero_y = got[0].clone()
+    for t, v in zip(inp, saved):
+        t.copy_(v)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(zero_y, torch.zeros_like(zero_y))
 
 
 @pytest.mark.cuda

@@ -32,6 +32,7 @@ from repro.models import ssm as jssm
 from repro_torch.configs.base import ModelConfig as TModelConfig
 from repro_torch.configs.base import SSMConfig as TSSMConfig
 from repro_torch.kernels.mamba_scan import kernel as mamba_kernel
+from repro_torch.kernels.mamba_scan import ref as mamba_ref
 from repro_torch.kernels.mamba_scan.ops import mamba_scan
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
@@ -67,7 +68,11 @@ def _close(a, b):
 
 @pytest.mark.parametrize("b,s,d,n,bd,bs", [
     (2, 64, 32, 8, 16, 16), (1, 128, 512, 16, 512, 128),
-    (2, 100, 48, 8, 48, 100), (1, 256, 64, 16, 32, 64)])
+    (2, 100, 48, 8, 48, 100), (1, 256, 64, 16, 32, 64),
+    # ragged: 130 channels, N not a multiple of 4 or above 16, odd S
+    (2, 33, 130, 5, 130, 11), (1, 37, 130, 5, 65, 37),
+    (2, 33, 130, 12, 65, 33), (1, 37, 130, 12, 130, 37),
+    (2, 33, 130, 64, 130, 33), (1, 37, 130, 64, 65, 37)])
 def test_mamba_scan_matches_jax(b, s, d, n, bd, bs):
     inp = mamba_inputs(b, s, d, n, seed=s + d)
     y, h = mamba_scan(*_t(inp))
@@ -78,6 +83,41 @@ def test_mamba_scan_matches_jax(b, s, d, n, bd, bs):
                                  block_s=bs, interpret=True)
     _close(y_k, y)
     _close(h_k, h)
+
+
+@pytest.mark.parametrize("n", [1, 4, 5, 12, 16, 33, 64])
+@pytest.mark.parametrize("d", [1, 5, 130, 8192])
+@pytest.mark.parametrize("s", [1, 31, 32, 33, 300, 2048])
+def test_scan_plan(s, d, n):
+    """The kernel's layout, from shapes alone: the fewest power-of-two
+    lanes holding every state, whole warps of at most SCAN_THREADS threads,
+    every channel in exactly one block, time tiles of whole groups of lanes
+    steps covering S, and nothing staged at S = 1."""
+    lanes, chans, tile = mamba_ref.scan_plan(s, d, n)
+    # the fewest power-of-two lanes that hold the states
+    per_lane = mamba_ref.STATES_A_LANE
+    assert lanes & (lanes - 1) == 0 and lanes * per_lane >= n
+    assert lanes == 1 or lanes * per_lane // 2 < n
+    threads = chans * lanes
+    assert threads % 32 == 0 and threads <= mamba_ref.SCAN_THREADS
+    assert chans % 4 == 0
+    n_blocks = -(-d // chans)
+    owners = [blk * chans + c for blk in range(n_blocks)
+              for c in range(chans) if blk * chans + c < d]
+    assert owners == list(range(d))
+    n_tiles = -(-s // tile)
+    assert n_tiles * tile >= s > (n_tiles - 1) * tile
+    assert (tile == 1) == (s == 1)
+    if s > 1:   # whole groups of lanes steps, none wholly past S
+        assert tile % lanes == 0 and tile <= mamba_ref.TIME_TILE
+        assert tile - s < lanes
+
+
+def test_scan_plan_of_falcon():
+    """falcon-mamba-7b (d_inner 8192, N 16): 4 lanes a channel, 64 channels
+    a block; its decode step stages nothing, its prompts 32 steps a tile."""
+    assert mamba_ref.scan_plan(1, 8192, 16) == (4, 64, 1)
+    assert mamba_ref.scan_plan(2048, 8192, 16) == (4, 64, 32)
 
 
 @pytest.mark.parametrize("b,s,h,d,n,bh,ck", [

@@ -26,22 +26,9 @@ import pathlib
 import subprocess
 import sys
 
+import kernel_variants as kv
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-
-
-def _baseline(path, build):
-    """The older kernel's C entry point, built from ``path``."""
-    so = ROOT / "build" / "kernels" / "baseline_decode_attention.so"
-    so.parent.mkdir(parents=True, exist_ok=True)
-    flags = [f for f in build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
-    subprocess.run([build._nvcc(), *flags, "-shared", "-o", str(so),
-                    str(path)], check=True)
-    lib = ctypes.CDLL(str(so))
-    fn = lib.repro_decode_attention
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def main() -> int:
@@ -64,7 +51,10 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(card, flush=True)
-    old = None if args.baseline is None else _baseline(args.baseline, build)
+    old = None if args.baseline is None else kv.baseline(
+        args.baseline, "repro_decode_attention",
+        [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+        + [ctypes.c_float, ctypes.c_void_p])
 
     def old_call(q, kp, vp, ln, tbl):
         b, s, g, qh, dk = q.shape

@@ -35,6 +35,8 @@ import pathlib
 import subprocess
 import sys
 
+import kernel_variants as kv
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 # part taken out -> (text of csrc/decode_attention.cu, its replacement)
 ABLATIONS = {
@@ -48,48 +50,6 @@ ABLATIONS = {
         ("  if (n_live <= 1) {", "  if (true) {"),
         ("  if (e != cudaSuccess || n_split == 1) return e;", "  return e;")],
 }
-
-
-def _ablated(build):
-    """{part: the kernel library built with that part taken out}."""
-    import ctypes as ct
-    out = ROOT / "build" / "kernels" / "ablate"
-    out.mkdir(parents=True, exist_ok=True)
-    flags = [f for f in build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
-    src = (build.CSRC / "decode_attention.cu").read_text()
-    others = [str(build.CSRC / n) for n in build.SOURCES
-              if n != "decode_attention.cu"]
-    procs = {}
-    for name, reps in ABLATIONS.items():
-        text = src
-        for old, new in reps:
-            if text.count(old) != 1:
-                raise RuntimeError(f"--ablate {name}: the source no longer "
-                                   f"holds {old.strip()!r} once")
-            text = text.replace(old, new)
-        (out / f"{name}.cu").write_text(text)
-        procs[name] = subprocess.Popen(
-            [build._nvcc(), *flags, "-shared", "-o", str(out / f"{name}.so"),
-             str(out / f"{name}.cu"), *others])
-    for name, proc in procs.items():
-        if proc.wait() != 0:
-            raise RuntimeError(f"--ablate {name}: nvcc failed")
-    return {name: build.bind(ct.CDLL(str(out / f"{name}.so")))
-            for name in ABLATIONS}
-
-
-def _baseline(path, build):
-    """The older kernel's split-score C entry point, built from ``path``."""
-    so = ROOT / "build" / "kernels" / "baseline_split_attention.so"
-    so.parent.mkdir(parents=True, exist_ok=True)
-    flags = [f for f in build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
-    subprocess.run([build._nvcc(), *flags, "-shared", "-o", str(so),
-                    str(path)], check=True)
-    fn = ctypes.CDLL(str(so)).repro_decode_attention_split
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def main() -> int:
@@ -113,8 +73,12 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(card, flush=True)
-    old = None if args.baseline is None else _baseline(args.baseline, build)
-    ablated = _ablated(build) if args.ablate else {}
+    old = None if args.baseline is None else kv.baseline(
+        args.baseline, "repro_decode_attention_split",
+        [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+        + [ctypes.c_float, ctypes.c_void_p])
+    ablated = (kv.edited("decode_attention.cu", ABLATIONS) if args.ablate
+               else {})
     scale = 1.0 / math.sqrt(192)
 
     def old_call(q, q2, lat, rp, ln, tbl):
@@ -165,13 +129,9 @@ def main() -> int:
                                        "plan": cs._split_plan_text(q, q2, lat,
                                                                    tbl)}
         ref.SCORE_BLOCKS = default
-        lib = build.library()
         for part, alt in ablated.items():
-            build._lib = alt
-            try:
+            with kv.launching_from(alt):
                 row[f"ablate_{part}_ms"] = cs.time_ms(torch, new)
-            finally:
-                build._lib = lib
         print(name, json.dumps(row), flush=True)
         del q, q2, lat, rp, want
     return 0
