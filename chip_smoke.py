@@ -28,13 +28,16 @@ non-zero without the final result line):
     in bfloat16 at B=4 with 1000 keys a row and 16384 (a 75.5 MB pool, 1.5
     times the L2), each with the key split it chose;
  4. the Mamba1 selective scan and the Mamba2 SSD scan, kernel vs plain
-    version on the card in float32 (atol = rtol = 1e-4: the kernels walk
-    the recurrence step by step, the plain SSD scan is chunked, and the
-    sums over the state run in other orders), at the serving paths' decode
-    and prefill shapes, with nonzero h0, and two calls that carry the
-    state against one call over the whole sequence (bitwise for the Mamba1
-    scan); the Mamba1 scan also over a 2048-step prompt (timed beside its
-    bound) and at a ragged width of 130 channels with N = 5 and 12;
+    version on the card in float32 (atol = rtol = 1e-4: the Mamba1 kernel
+    walks the recurrence step by step, the SSD kernel computes the chunked
+    form on the tensor cores in error-compensated TF32 with other chunks
+    than the plain version, and the sums run in other orders), at the
+    serving paths' decode and prefill shapes, with nonzero h0, and two
+    calls that carry the state against one call over the whole sequence
+    (bitwise for the Mamba1 scan); both scans also over a 2048-step prompt
+    (timed beside their bounds) and at ragged widths (the Mamba1 scan 130
+    channels with N = 5 and 12, the SSD scan 3 heads of D = 7 with N = 5);
+    two SSD calls on the same inputs bitwise equal;
  5. serving, at its published width with random weights, through
     ``ServingEngine.generate_batch`` with the DOMINO JSON grammar, 4
     requests in 4 slots, 32 tokens each: stablelm-1.6b over a paged KV
@@ -72,7 +75,7 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_OPS = {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12}
 MODELS = ("stablelm-1.6b", "falcon-mamba-7b", "zamba2-1.2b",
           "deepseek-v3-671b")
 # depth cuts that fit one 80 GB card, by dtype (widths stay as published):
@@ -173,7 +176,8 @@ def phase_env(torch):
     for fn, info in _ptxas_by_function(build.build_log).items():
         if "decode_attention_kernel" in fn \
                 or "decode_attention_split_mma_kernel" in fn \
-                or "mamba_scan_kernelILi4E" in fn:
+                or "mamba_scan_kernelILi4E" in fn \
+                or "ssd_chunk_kernel" in fn or "ssd_decode_kernelILb1E" in fn:
             log(f"[build] {_demangle(fn)}: {info}")
     return card
 
@@ -643,14 +647,36 @@ def _mamba_bound(dt, n):
     return bound_ms(n_bytes, 7 * b * s * d * n, "float32")
 
 
-def _ssd_bound(x, n):
-    """Each operand read once, y and hT written once; 5 operations a
-    (row, step, head, dim, state): two products and a sum for the update,
-    a product and a sum for y."""
+def _ssd_bytes(x, n):
+    """Each operand read once, y and hT written once."""
     b, s, h, d = x.shape
-    n_bytes = 4 * (2 * b * s * h * d + 2 * b * s * n + 2 * b * s * h
-                   + 2 * b * h * d * n)
-    return bound_ms(n_bytes, 5 * b * s * h * d * n, "float32")
+    return 4 * (2 * b * s * h * d + 2 * b * s * n + 2 * b * s * h
+                + 2 * b * h * d * n)
+
+
+def _ssd_bound(x, n):
+    """The bytes, or the operations at the rate of the units that can do
+    them.  S = 1: the recurrence's 5 a (row, head, dim, state) at the
+    float32 rate.  S > 1: the chunked form's products in 64-step chunks
+    (the last ragged), as three TF32 passes at the TF32 rate (the least
+    time for float32-accurate products on this card): a chunk of l steps
+    takes l (l + 1) / 2 N multiply-adds a row for the causal C B^T, shared
+    by the heads, and, a head, l (l + 1) / 2 D for (G o M) (x dt) and
+    l D N each for C h^T and the state update; two operations each."""
+    b, s, h, d = x.shape
+    if s == 1:
+        return bound_ms(_ssd_bytes(x, n), 5 * b * h * d * n, "float32")
+    ls = [min(64, s - t) for t in range(0, s, 64)]
+    macs = b * sum(l * (l + 1) // 2 * (n + h * d) + 2 * h * l * d * n
+                   for l in ls)
+    return bound_ms(_ssd_bytes(x, n), 3 * 2 * macs, "tf32")
+
+
+def _ssd_recurrence_ms(x, n):
+    """The recurrence's 5 operations a (row, step, head, dim, state) at the
+    float32 rate: the figure earlier runs used as #5's bound, computed."""
+    b, s, h, d = x.shape
+    return 5 * b * s * h * d * n / PEAK_OPS["float32"] * 1e3
 
 
 def _scan_err(torch, got, want, what):
@@ -675,10 +701,11 @@ def _scan_inputs(torch, gen, shapes, scales):
 
 def phase_scans(torch):
     """Both scan kernels against their plain versions at the serving
-    paths' shapes (and, for the Mamba1 scan, a 2048-step prompt and ragged
-    widths with N = 5 and 12); returns {kernel: {"long": {...}}} at a
-    300-step prompt, and the Mamba1 scan's "long_cold" at 2048 steps.  A
-    Mamba1 call split in two and carried must give one call's bits."""
+    paths' shapes, a 2048-step prompt and ragged widths (the Mamba1 scan
+    N = 5 and 12, the SSD scan D = 7 and N = 5); returns {kernel: {"long":
+    {...}, "long_cold": {...}}} at a 300- and a 2048-step prompt.  A Mamba1
+    call split in two and carried must give one call's bits; two SSD calls
+    on the same inputs must give equal bits."""
     from repro_torch.kernels.mamba_scan.kernel import mamba_scan_cuda
     from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
     from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
@@ -736,18 +763,28 @@ def phase_scans(torch):
             out["mamba_scan"][key] = {
                 "shape": f"B={b} S={s} d={d} N={n}", "ms": k_ms,
                 "plain_ms": p_ms, "bound_ms": bnd}
-    # zamba2-1.2b: 64 heads of 64, N 64; decode B=4, prefill B=1
-    h, hd, n = 64, 64, 64
-    for b, s in ((4, 1), (1, 37), (1, 128), (1, 300)):
+    # zamba2-1.2b: 64 heads of 64, N 64; decode B=4, prefill B=1, and a
+    # 2048-step prompt (71 MB of operands, above the L2); then 3 heads of
+    # D = 7 with N = 5 (scalar staging, a ragged last chunk)
+    out["ssd_scan"] = {}
+    for b, s, h, hd, n, g in ((4, 1, 64, 64, 64, gen), (1, 37, 64, 64, 64, gen),
+                              (1, 128, 64, 64, 64, gen),
+                              (1, 300, 64, 64, 64, gen),
+                              (1, 2048, 64, 64, 64, extra),
+                              (2, 129, 3, 7, 5, extra)):
         x, bm, cm, ld, dt, h0 = _scan_inputs(
-            torch, gen, [(b, s, h, hd), (b, s, n), (b, s, n), (b, s, h),
-                         (b, s, h), (b, h, hd, n)],
+            torch, g, [(b, s, h, hd), (b, s, n), (b, s, n), (b, s, h),
+                       (b, s, h), (b, h, hd, n)],
             [None, None, None, -0.3, 0.2, None])
         chunk = min(128, s)
         got = ssd_scan_cuda(x, bm, cm, ld, dt, h0)
+        again = ssd_scan_cuda(x, bm, cm, ld, dt, h0)
         want = ssd_scan_ref(x, bm, cm, ld, dt, h0, chunk=chunk)
         torch.cuda.synchronize()
-        err = _scan_err(torch, got, want, f"ssd_scan B={b} S={s}")
+        what = f"ssd_scan B={b} S={s} H={h} D={hd} N={n}"
+        err = _scan_err(torch, got, want, what)
+        if not all(torch.equal(u, v) for u, v in zip(got, again)):
+            raise AssertionError(f"{what}: two calls differ")
         cont = ""
         if s > 1:
             c = s // 2
@@ -759,17 +796,26 @@ def phase_scans(torch):
             e2 = _scan_err(torch, (torch.cat([y1, y2], 1), h2), got,
                            f"ssd_scan continuity B={b} S={s}")
             cont = f", {c}+{s - c} steps carried vs one call err {e2:.2e}"
-        k_ms = time_ms(torch, lambda: ssd_scan_cuda(x, bm, cm, ld, dt, h0))
+        if hd != 64:
+            log(f"[scan] {what}, nonzero h0: err {err:.2e} (tol {SCAN_TOL})"
+                f"{cont}; two calls bitwise equal")
+            continue
+        k_ms = time_ms(torch, lambda: ssd_scan_cuda(x, bm, cm, ld, dt, h0),
+                       n=20 if s > 300 else 50)
         p_ms = time_ms(torch, lambda: ssd_scan_ref(x, bm, cm, ld, dt, h0,
-                                                   chunk=chunk), n=10)
+                                                   chunk=chunk),
+                       n=3 if s > 300 else 10)
         bnd, by = _ssd_bound(x, n)
-        log(f"[scan] ssd_scan B={b} S={s} H={h} D={hd} N={n}, nonzero h0: "
-            f"err {err:.2e} (tol {SCAN_TOL}){cont}; kernel {k_ms:.4f} ms, "
-            f"plain {p_ms:.4f} ms (chunk {chunk}), bound {bnd:.5f} ms by "
-            f"{by}")
-        out["ssd_scan"] = {"long": {
-            "shape": f"B={b} S={s} H={h} D={hd} N={n}", "ms": k_ms,
-            "plain_ms": p_ms, "bound_ms": bnd}}
+        log(f"[scan] {what}, nonzero h0: err {err:.2e} (tol {SCAN_TOL})"
+            f"{cont}; two calls bitwise equal; kernel {k_ms:.4f} ms, plain "
+            f"{p_ms:.4f} ms (chunk {chunk}), bound {bnd:.5f} ms by {by}; "
+            f"the recurrence at the float32 rate {_ssd_recurrence_ms(x, n):.5f}"
+            " ms (computed)")
+        key = {300: "long", 2048: "long_cold"}.get(s)
+        if key:
+            out["ssd_scan"][key] = {
+                "shape": f"B={b} S={s} H={h} D={hd} N={n}", "ms": k_ms,
+                "plain_ms": p_ms, "bound_ms": bnd}
     return out
 
 

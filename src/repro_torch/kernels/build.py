@@ -113,7 +113,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.repro_masked_argmax_bytes.restype = _I
     lib.repro_mamba_scan.argtypes = [_P] * 8 + [_I] * 7 + [_P]
     lib.repro_mamba_scan.restype = _I
-    lib.repro_ssd_scan.argtypes = [_P] * 8 + [_I] * 5 + [_P]
+    lib.repro_ssd_scan.argtypes = [_P] * 8 + [_I] * 6 + [_P]
     lib.repro_ssd_scan.restype = _I
     lib.repro_cuda_error_string.argtypes = [_I]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p

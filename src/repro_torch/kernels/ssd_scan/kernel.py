@@ -6,6 +6,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.ssd_scan import ref
 
 MAX_DIM = 128       # largest head dim D and state size N
 
@@ -14,8 +15,14 @@ def ssd_scan_cuda(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                   ld: torch.Tensor, dt: torch.Tensor, h0: torch.Tensor):
     """x (B,S,H,D); b, c (B,S,N); ld, dt (B,S,H); h0 (B,H,D,N), all
     float32, contiguous, on one CUDA device -> (y (B,S,H,D), hT (B,H,D,N))
-    float32.  The kernel runs the recurrence step by step, so it has no
-    chunk size."""
+    float32.
+
+    One launch, laid out by ``ref.ssd_plan`` from the shapes alone: S = 1
+    takes the decode path, S > 1 the chunked path on the tensor cores (the
+    kernel's own chunk length, whatever the caller's plain version would
+    use).  It
+    allocates nothing but the two outputs and reads nothing back to the
+    host."""
     args = (("x", x), ("b", b), ("c", c), ("ld", ld), ("dt", dt),
             ("h0", h0))
     dev = x.device
@@ -43,11 +50,13 @@ def ssd_scan_cuda(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     h_t = torch.empty((bsz, h, d, n), dtype=torch.float32, device=dev)
     if bsz == 0 or h == 0:
         return y, h_t
+    plan = ref.ssd_plan(s, h, d, n)
     lib = build.library()
     rc = lib.repro_ssd_scan(
         x.data_ptr(), b.data_ptr(), c.data_ptr(), ld.data_ptr(),
         dt.data_ptr(), h0.data_ptr(), y.data_ptr(), h_t.data_ptr(), bsz, s,
-        h, d, n, torch.cuda.current_stream(dev).cuda_stream)
+        h, d, n, plan.d_split,
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "ssd_scan")
     ssd_scan_cuda.launches += 1
     return y, h_t

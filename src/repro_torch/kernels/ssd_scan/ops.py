@@ -3,8 +3,8 @@
 
 A CUDA tensor goes through the hand-written kernel, or the call raises;
 only a tensor on the CPU takes the plain version (``ref.py``), which is
-chunked by ``chunk`` as the JAX package's is.  The kernel runs the same
-recurrence step by step and ignores ``chunk``.
+chunked by ``chunk`` as the JAX package's is.  The kernel chooses its own
+chunk and ignores ``chunk``.
 """
 from __future__ import annotations
 

@@ -12,8 +12,10 @@ score of absorbed MLA atol = rtol = 1e-4 (576-long dot products in another
 order); bfloat16 attention, both scores (the split score's products on the
 tensor cores), atol = rtol = 2e-2 in float32, about one bf16
 ulp of the output; the two scans atol = rtol = 1e-4 in
-float32 (the kernels walk the recurrence step by step, the plain SSD scan
-is chunked, and the orders of the sums over the state differ)."""
+float32 (the Mamba1 kernel walks the recurrence step by step; the SSD
+kernel computes the chunked form on the tensor cores in error-compensated
+TF32, with other chunks than the plain version; the orders of the sums
+differ)."""
 import dataclasses
 
 import numpy as np
@@ -34,7 +36,7 @@ from repro_torch.kernels.mamba_scan.ops import mamba_scan
 from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
-from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked, ssd_scan_ref
 from repro_torch.models import build_model
 from torch_cases import (byte_mask_case, mamba_inputs, mask_case,
                          paged_case, split_case, ssd_inputs)
@@ -368,10 +370,14 @@ def test_mamba_scan_kernel_replays_in_cuda_graph(cuda_device, b, s, d, n):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s,h,d,n", [(4, 1, 64, 64, 64), (1, 37, 64, 64, 64),
                                        (1, 300, 4, 64, 64), (2, 96, 6, 8, 4),
-                                       (1, 20, 2, 128, 128), (2, 17, 3, 7, 5)])
+                                       (1, 20, 2, 128, 128), (2, 17, 3, 7, 5),
+                                       (1, 2048, 64, 64, 64),
+                                       (1, 65, 64, 64, 64), (2, 129, 3, 7, 5)])
 def test_ssd_scan_kernel_matches_plain(cuda_device, b, s, h, d, n):
-    inp = [torch.from_numpy(x).to(cuda_device)
-           for x in ssd_inputs(b, s, h, d, n, seed=s + h)]
+    """The decode path (S = 1) and the chunked path (ragged last chunks, D
+    and N not multiples of 8, D = N = 128, a 2048-step prompt) against the
+    plain version, and a call split in two and carried against one call."""
+    inp = _ssd_case(cuda_device, b, s, h, d, n)
     chunk = min(128, s)
     before = ssd_kernel.ssd_scan_cuda.launches
     y, hT = ssd_scan(*inp, chunk=chunk)
@@ -387,6 +393,65 @@ def test_ssd_scan_kernel_matches_plain(cuda_device, b, s, h, d, n):
         y2, h2 = ssd_scan(*second, h1)
         torch.testing.assert_close(torch.cat([y1, y2], 1), y, **SCAN_TOL)
         torch.testing.assert_close(h2, hT, **SCAN_TOL)
+
+
+def _ssd_case(device, b, s, h, d, n):
+    return [torch.from_numpy(x).to(device)
+            for x in ssd_inputs(b, s, h, d, n, seed=s + h)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,d,n", [(4, 1, 64, 64, 64), (1, 300, 64, 64, 64),
+                                       (2, 129, 3, 7, 5), (1, 20, 2, 128, 128),
+                                       (1, 100, 64, 128, 128)])
+def test_ssd_scan_kernel_repeats_bitwise(cuda_device, b, s, h, d, n):
+    """Two calls on the same inputs give the same bits (a fixed order of
+    every sum, no atomics)."""
+    inp = _ssd_case(cuda_device, b, s, h, d, n)
+    y1, h1 = ssd_scan(*inp)
+    y2, h2 = ssd_scan(*inp)
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,d,n", [(1, 37, 64, 64, 64), (1, 300, 64, 64, 64),
+                                       (1, 100, 64, 128, 128)])
+def test_ssd_scan_kernel_matches_tf32_emulation(cuda_device, b, s, h, d, n):
+    """At zamba2-1.2b's width (64-step chunks) and at the widest head (the
+    kernel's chunk drops to 32 there, to fit shared memory) the kernel
+    equals its chunked order in plain PyTorch with that chunk and three
+    TF32 passes (``ssd_scan_chunked``)."""
+    inp = _ssd_case(cuda_device, b, s, h, d, n)
+    y, hT = ssd_scan(*inp)
+    y_e, h_e = ssd_scan_chunked(*inp, chunk=64 if d == 64 else 32,
+                                tf32_passes=3)
+    torch.testing.assert_close(y, y_e, **SCAN_TOL)
+    torch.testing.assert_close(hT, h_e, **SCAN_TOL)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_kernel_empty_sequence(cuda_device):
+    """S = 0 launches the chunked path with no chunk: hT is h0."""
+    inp = _ssd_case(cuda_device, 2, 0, 3, 7, 5)
+    y, hT = ssd_scan(*inp)
+    assert y.shape == (2, 0, 3, 7) and torch.equal(hT, inp[5])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 37])
+def test_ssd_scan_kernel_reads_nothing_to_host(cuda_device, s):
+    """A call (its plan chosen from shapes) makes no host sync."""
+    inp = _ssd_case(cuda_device, 4 if s == 1 else 1, s, 64, 64, 64)
+    ssd_scan(*inp)   # build and load
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, h = ssd_scan(*inp)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    y_p, h_p = ssd_scan_ref(*inp, chunk=min(128, s))
+    torch.testing.assert_close(y, y_p, **SCAN_TOL)
+    torch.testing.assert_close(h, h_p, **SCAN_TOL)
 
 
 @pytest.mark.cuda

@@ -4,8 +4,10 @@ beside the current kernel in the same run), and the whole library built
 again with a kernel's source edited: one part taken out (an ablation: what
 a part costs is how much faster the kernel runs without it) or a layout or
 schedule changed (a variant).  Both land in the git-ignored
-``build/kernels/``.  The callers put the repository's ``src`` on
-``sys.path`` first.
+``build/kernels/``.  Also the timing helpers the tools share: a pair of
+readings taken in turns, and the SM clock and power draw sampled while a
+kernel runs.  The callers put the repository's ``src`` on ``sys.path``
+first.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import contextlib
 import ctypes
 import pathlib
 import subprocess
+import time
 
 OUT = pathlib.Path(__file__).resolve().parents[1] / "build" / "kernels"
 
@@ -75,3 +78,32 @@ def launching_from(lib):
         yield
     finally:
         build._lib = saved
+
+
+def pair(time_ms, other, kernel, n):
+    """([other, other], [kernel, kernel]) ms by ``time_ms(fn, n)``, timed
+    in the order other, kernel, kernel, other."""
+    t = [time_ms(f, n) for f in (other, kernel, kernel, other)]
+    return [t[0], t[3]], t[1:3]
+
+
+def clock_during(torch, fn, seconds=1.0):
+    """Median SM clock (MHz) and power draw (W) that ``nvidia-smi`` samples
+    while ``fn`` runs back to back for about ``seconds``."""
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, text=True)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(200):
+            fn()
+        torch.cuda.synchronize()
+    smi.terminate()
+    out, _ = smi.communicate()
+    rows = [list(map(float, line.split(","))) for line in out.splitlines()
+            if line.strip()]
+    if not rows:
+        return None, None
+    mid = sorted(rows)[len(rows) // 2]
+    return mid[0], mid[1]

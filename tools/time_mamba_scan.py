@@ -47,7 +47,6 @@ import re
 import shutil
 import subprocess
 import sys
-import time
 
 import kernel_variants as kv
 
@@ -115,28 +114,6 @@ def _scan64(torch, dt, x, bm, cm, a, h0):
             + (dt[:, t] * x[:, t])[:, :, None] * bm[:, t, None, :]
         ys.append(torch.einsum("bdn,bn->bd", h, cm[:, t]))
     return torch.stack(ys, dim=1), h
-
-
-def _clock_during(torch, fn, seconds=1.0):
-    """Median SM clock (MHz) and power draw (W) that ``nvidia-smi`` samples
-    while ``fn`` runs back to back for about ``seconds``."""
-    smi = subprocess.Popen(
-        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
-         "--format=csv,noheader,nounits", "-lms", "100"],
-        stdout=subprocess.PIPE, text=True)
-    t0 = time.perf_counter()
-    while time.perf_counter() - t0 < seconds:
-        for _ in range(200):
-            fn()
-        torch.cuda.synchronize()
-    smi.terminate()
-    out, _ = smi.communicate()
-    rows = [list(map(float, line.split(","))) for line in out.splitlines()
-            if line.strip()]
-    if not rows:
-        return None, None
-    mid = sorted(rows)[len(rows) // 2]
-    return mid[0], mid[1]
 
 
 def _loop_sass(lib_path):
@@ -223,10 +200,8 @@ def main() -> int:
         return y, h
 
     def pair(other, kernel, n):
-        """[other, other] and [kernel, kernel] ms, timed other, kernel,
-        kernel, other."""
-        t = [cs.time_ms(torch, f, n=n) for f in (other, kernel, kernel, other)]
-        return [t[0], t[3]], t[1:3]
+        return kv.pair(lambda f, k: cs.time_ms(torch, f, n=k), other, kernel,
+                       n)
 
     def on(alt, fn):
         """``fn`` launching from the library ``alt``."""
@@ -272,7 +247,7 @@ def main() -> int:
         kernel_lib = use(*plans[0])
         with kv.launching_from(kernel_lib):
             if name == "long_cold":
-                row["clock_mhz"], row["power_w"] = _clock_during(torch, new)
+                row["clock_mhz"], row["power_w"] = kv.clock_during(torch, new)
         for v in changes:
             with kv.launching_from(libs[v]):
                 got = new()
