@@ -12,7 +12,13 @@ non-zero without the final result line):
     and CUDA versions, the nvcc build of every kernel from ``csrc/``;
  2. masked argmax, packed-word and byte-mask kernels vs the plain version
     on the card (bitwise), and the byte-mask kernel vs the packed kernel on
-    the packed form of the same mask (bitwise);
+    the packed form of the same mask (bitwise): odd row strides and rows
+    off a 16-byte boundary, float32, bfloat16 and float16 logits, ties on
+    either side of the plan's split edges, a legal NaN (it never wins; the
+    other rows equal the plain version), B=64 at V=262144, two calls
+    bitwise equal; each timed at B=4 on a real vocabulary (V=100352 packed,
+    129280 bytes) and at B=64 V=262144 (67 MB of logits, above the L2),
+    beside its bound and a ``torch.argmax`` yardstick, with its split;
  3. decode attention, kernel vs plain version on the card: paged
     (shuffled tables, -1 vacancies, foreign pages poisoned with NaN) and
     contiguous, (S, Qh) in {(1, 1), (3, 1), (3, 2), (9, 7)} (63 query rows
@@ -224,13 +230,16 @@ def _demangle(name):
 # -- phase 2 --------------------------------------------------------------------
 
 
-def _mask_case(torch, gen, b, v, stride):
-    """Strided logits (row stride > v, as the scheduler's padded view)
-    and packed int32 words with an all-zero row, a one-legal row and
-    rows with deliberate ties."""
+def _mask_case(torch, gen, b, v, stride, col0=0, dtype=None):
+    """Strided logits (row stride > v, as the scheduler's padded view,
+    starting at column ``col0``; float32 unless ``dtype``) and packed int32
+    words with an all-zero row, a one-legal row and rows with deliberate
+    ties."""
     dev = "cuda"
     full = torch.randn((b, stride), generator=gen, device=dev)
-    logits = full[:, :v]
+    if dtype is not None:
+        full = full.to(dtype)
+    logits = full[:, col0:col0 + v]
     w = -(-v // 32)
     bits = torch.randint(-2 ** 31, 2 ** 31 - 1, (b, w), generator=gen,
                          device=dev, dtype=torch.int64).to(torch.int32)
@@ -247,34 +256,93 @@ def _mask_case(torch, gen, b, v, stride):
     return logits, bits
 
 
-def phase_masked_argmax(torch):
-    """Both argmax kernels against the plain version, and the byte-mask
-    kernel against the packed one; returns {"long": (ms, plain ms, bound
-    ms)} of the byte-mask kernel at B=4, V=129280."""
+def _set_legal(torch, bits, r, t):
+    bits[r, t // 32] |= torch.tensor(1 << (t % 32), dtype=torch.int64) \
+        .to(torch.int32).item()
+
+
+def _argmax_check(torch, what, logits, bits, want=None, rows=slice(None)):
+    """Both kernels on ``logits`` (the byte kernel on the bool form of
+    ``bits``), bitwise against ``want`` (default: the plain version) on
+    ``rows`` and against each other everywhere; a second call of each
+    bitwise equal to the first.  Returns the packed kernel's result."""
     from repro_torch.kernels.masked_sample.kernel import (masked_argmax_bytes,
                                                           masked_argmax_packed)
     from repro_torch.kernels.masked_sample.ref import (masked_argmax_ref,
+                                                       unpack_bits)
+    mask = unpack_bits(bits, logits.shape[1])
+    if want is None:
+        want = masked_argmax_ref(logits, bits)
+    got_p = masked_argmax_packed(logits, bits)
+    got_b = masked_argmax_bytes(logits, mask)
+    pairs = ((got_p, masked_argmax_packed(logits, bits), "a second call"),
+             (got_b, masked_argmax_bytes(logits, mask), "a second call"),
+             (got_b, got_p, "the packed kernel"))
+    torch.cuda.synchronize()
+    for name, (i1, v1) in (("packed", got_p), ("byte-mask", got_b)):
+        if not (torch.equal(i1[rows], want[0][rows])
+                and torch.equal(v1[rows], want[1][rows])):
+            bad = (i1[rows] != want[0][rows]).nonzero().flatten()[:4].tolist()
+            raise AssertionError(f"{name} argmax, {what}: kernel differs from "
+                                 f"the plain version at rows {bad}")
+    for (i1, v1), (i2, v2), other in pairs:
+        if not (torch.equal(i1, i2) and torch.equal(v1, v2)):
+            raise AssertionError(f"argmax, {what}: a result differs from "
+                                 f"{other}")
+    return got_p
+
+
+def _argmax_timing(torch, layout, logits, bits):
+    """{ms, plain_ms, bound_ms} of one kernel on (B, V) float32 logits,
+    logged beside the plan and the ``torch.argmax`` yardstick over the same
+    unmasked logits (not the same function: it goes on the log line only)."""
+    from repro_torch.kernels.masked_sample.kernel import (masked_argmax_bytes,
+                                                          masked_argmax_packed)
+    from repro_torch.kernels.masked_sample.ref import (argmax_plan,
+                                                       masked_argmax_ref,
+                                                       unpack_bits)
+    b, v = logits.shape
+    if layout == "packed":
+        fn, mask = masked_argmax_packed, bits
+        n_bytes = b * v * 4 + bits.numel() * 4 + b * 8
+    else:
+        fn, mask = masked_argmax_bytes, unpack_bits(bits, v)
+        n_bytes = b * v * 5 + b * 8
+    bnd, _ = bound_ms(n_bytes, b * v, "float32")
+    out = {"shape": f"B={b} V={v} float32",
+           "ms": time_ms(torch, lambda: fn(logits, mask)),
+           "plain_ms": time_ms(torch, lambda: masked_argmax_ref(logits, mask),
+                               n=10),
+           "bound_ms": bnd}
+    yard = time_ms(torch, lambda: torch.argmax(logits, dim=-1))
+    plan = argmax_plan(b, v)
+    log(f"[argmax] {layout} B={b} V={v}: kernel {out['ms']:.4f} ms "
+        f"(n_split {plan.n_split} of {plan.split_len} tokens), plain "
+        f"{out['plain_ms']:.4f} ms, bound {bnd:.5f} ms (bytes), yardstick "
+        f"torch.argmax {yard:.4f} ms")
+    return out
+
+
+def phase_masked_argmax(torch):
+    """Both argmax kernels against the plain version and each other, bit
+    for bit: bool and int8 byte masks, odd row strides and rows off a
+    16-byte boundary, bfloat16 and
+    float16 logits, ties on either side of a split edge, a NaN row, B=64 at
+    V=262144, two calls equal; then each timed at B=4 on a real vocabulary
+    ("long") and at B=64 V=262144 ("long_cold").  Returns {layout: {"long":
+    ..., "long_cold": ...}}."""
+    from repro_torch.kernels.masked_sample.kernel import (masked_argmax_bytes,
+                                                          masked_argmax_packed)
+    from repro_torch.kernels.masked_sample.ref import (argmax_plan,
+                                                       masked_argmax_ref,
                                                        unpack_bits)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     for b in (1, 4, 64):
         for v in (400, 100352, 1001):
             logits, bits = _mask_case(torch, gen, b, v, v + 96)
-            i1, v1 = masked_argmax_packed(logits, bits)
-            i2, v2 = masked_argmax_ref(logits, bits)
-            torch.cuda.synchronize()
-            if not (torch.equal(i1, i2) and torch.equal(v1, v2)):
-                bad = (i1 != i2).nonzero().flatten()[:4].tolist()
-                raise AssertionError(f"masked argmax B={b} V={v}: kernel "
-                                     f"differs from plain at rows {bad}")
+            _argmax_check(torch, f"B={b} V={v}", logits, bits)
             log(f"[argmax] B={b} V={v}: bitwise equal")
-    logits, bits = _mask_case(torch, gen, 4, 100352, 100352)
-    k_ms = time_ms(torch, lambda: masked_argmax_packed(logits, bits))
-    p_ms = time_ms(torch, lambda: masked_argmax_ref(logits, bits))
-    bnd, _ = bound_ms(4 * 100352 * 4 + bits.numel() * 4 + 4 * 8,
-                      4 * 100352, "float32")
-    log(f"[argmax] B=4 V=100352: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-        f"bound {bnd:.5f} ms")
     # the byte-mask kernel: bool and int8 masks (any nonzero byte legal),
     # bitwise against the plain version and the packed kernel
     for b in (4, 64):
@@ -299,14 +367,64 @@ def phase_masked_argmax(torch):
                     raise AssertionError("byte-mask argmax: all-illegal row")
             log(f"[argmax] byte mask B={b} V={v} bool and int8: bitwise "
                 "equal to plain and to the packed kernel")
-    logits, bits = _mask_case(torch, gen, 4, 129280, 129280)
-    mask = unpack_bits(bits, 129280)
-    k_ms = time_ms(torch, lambda: masked_argmax_bytes(logits, mask))
-    p_ms = time_ms(torch, lambda: masked_argmax_ref(logits, mask))
-    bnd, _ = bound_ms(4 * 129280 * (4 + 1) + 4 * 8, 4 * 129280, "float32")
-    log(f"[argmax] byte mask B=4 V=129280: kernel {k_ms:.4f} ms, plain "
-        f"{p_ms:.4f} ms, bound {bnd:.5f} ms")
-    return {"long": (k_ms, p_ms, bnd), "long_shape": "B=4 V=129280"}
+    # odd row strides and rows that start off a 16-byte boundary, in
+    # float32, bfloat16 and float16 (widened exactly in the kernel)
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for b, v, stride, col0 in ((4, 100352, 100353, 0),
+                                   (4, 129280, 129283, 1), (64, 1001, 1009, 3),
+                                   (4, 403, 100352, 0)):
+            logits, bits = _mask_case(torch, gen, b, v, stride, col0, dtype)
+            _argmax_check(torch, f"B={b} V={v} {dtype} stride "
+                          f"{logits.stride(0)} from column {col0}", logits,
+                          bits)
+        log(f"[argmax] {dtype}: odd strides and unaligned rows bitwise equal")
+    # an equal maximum on either side of every split edge (row 2), and in
+    # the last token of one split and the first of the next only (row 3)
+    for b, v in ((4, 100352), (64, 262144)):
+        logits, bits = _mask_case(torch, gen, b, v, v + 1)
+        plan = argmax_plan(b, v)
+        edges = [s * plan.split_len for s in range(1, plan.n_split)]
+        for r, toks in ((2, [t for e in edges for t in (e - 1, e)]),
+                        (3, [edges[-1] - 1, edges[-1]])):
+            logits[r] = torch.where(logits[r] >= 10.0, 0.0, logits[r])
+            for t in toks:
+                logits[r, t] = 20.0
+                _set_legal(torch, bits, r, t)
+        i1, _ = _argmax_check(torch, f"ties across split edges B={b} V={v}",
+                              logits, bits)
+        if i1[2].item() != edges[0] - 1 or i1[3].item() != edges[-1] - 1:
+            raise AssertionError("argmax: a tie across a split edge went to "
+                                 "the higher index")
+        log(f"[argmax] B={b} V={v}: ties across {len(edges)} split edges go "
+            "to the lower index")
+    # a legal NaN in one split: never wins, and the other rows are the
+    # plain version's
+    for b, v in ((4, 100352), (4, 403)):
+        logits, bits = _mask_case(torch, gen, b, v, v)
+        t = v // 3
+        logits[1, t] = float("nan")
+        _set_legal(torch, bits, 1, t)
+        no_nan = logits.clone()
+        no_nan[1, t] = float("-inf")
+        _argmax_check(torch, f"NaN row B={b} V={v}", logits, bits,
+                      want=masked_argmax_ref(no_nan, bits))
+        _argmax_check(torch, f"rows beside a NaN row B={b} V={v}", logits,
+                      bits, rows=slice(2, None))
+        log(f"[argmax] NaN row B={b} V={v}: the NaN never wins, the other "
+            "rows equal the plain version")
+    logits, bits = _mask_case(torch, gen, 64, 262144, 262144)
+    _argmax_check(torch, "B=64 V=262144", logits, bits)
+    log("[argmax] B=64 V=262144: both kernels bitwise equal to plain, to "
+        "each other and to a second call")
+    out = {"packed": {"long_cold": _argmax_timing(torch, "packed", logits,
+                                                  bits)},
+           "bytes": {"long_cold": _argmax_timing(torch, "bytes", logits,
+                                                 bits)}}
+    del logits, bits
+    for layout, v in (("packed", 100352), ("bytes", 129280)):
+        logits, bits = _mask_case(torch, gen, 4, v, v)
+        out[layout]["long"] = _argmax_timing(torch, layout, logits, bits)
+    return out
 
 
 # -- phase 3 --------------------------------------------------------------------
@@ -1297,7 +1415,7 @@ def _mid_decode_call(calls, seq_axis):
     return pick[len(pick) // 2]
 
 
-def phase_kernels(torch, paths, scans, attn_long, split_long, bytes_long):
+def phase_kernels(torch, paths, scans, attn_long, split_long, argmax_long):
     """Each kernel on the inputs of a mid-run call of a serving path."""
     from repro_torch.kernels.decode_attention.kernel import (
         decode_attention_cuda, decode_attention_split_cuda)
@@ -1339,7 +1457,8 @@ def phase_kernels(torch, paths, scans, attn_long, split_long, bytes_long):
         "shape": f"B={b} V={v} row stride {logits.stride(0)} (stablelm-1.6b)",
         "ms": time_ms(torch, lambda: masked_argmax_packed(logits, bits)),
         "plain_ms": time_ms(torch, lambda: masked_argmax_ref(logits, bits)),
-        "bound_ms": bnd, "bound_by": bnd_by, "library_ms": None})
+        "bound_ms": bnd, "bound_by": bnd_by, "library_ms": None,
+        **argmax_long["packed"]})
 
     def attn_entry(arch):
         calls = paths[arch]["calls"]["decode_attention"]
@@ -1419,7 +1538,6 @@ def phase_kernels(torch, paths, scans, attn_long, split_long, bytes_long):
         raise AssertionError("byte-mask argmax differs on op-path inputs")
     b, v = logits.shape
     bnd, bnd_by = bound_ms(b * v * 5 + b * 8, b * v, "float32")
-    k_long, p_long, b_long = bytes_long["long"]
     out.append({
         "name": "masked_argmax_bytes", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/masked_argmax.cu",
@@ -1431,8 +1549,7 @@ def phase_kernels(torch, paths, scans, attn_long, split_long, bytes_long):
         "ms": time_ms(torch, lambda: masked_argmax_bytes(logits, mask)),
         "plain_ms": time_ms(torch, lambda: masked_argmax_ref(logits, mask)),
         "bound_ms": bnd, "bound_by": bnd_by, "library_ms": None,
-        "long": {"shape": bytes_long["long_shape"], "ms": k_long,
-                 "plain_ms": p_long, "bound_ms": b_long}})
+        **argmax_long["bytes"]})
 
     for name, arch, fn, ref, bound, shape_of in (
             ("mamba_scan", "falcon-mamba-7b", mamba_scan_cuda,
@@ -1517,7 +1634,7 @@ def main() -> int:
 
     try:
         card = timed("env and build", phase_env, torch)
-        bytes_long = timed("masked argmax", phase_masked_argmax, torch)
+        argmax_long = timed("masked argmax", phase_masked_argmax, torch)
         attn_long = timed("decode attention", phase_decode_attention, torch)
         split_long = timed("split-score attention", phase_split_attention,
                            torch)
@@ -1538,7 +1655,7 @@ def main() -> int:
         paths[MASK_OP_PATH] = timed("masked_argmax op", phase_mask_op, torch,
                                     paths["deepseek-v3-671b"])
         kernels = timed("kernels", phase_kernels, torch, paths, scans,
-                        attn_long, split_long, bytes_long)
+                        attn_long, split_long, argmax_long)
     except Exception as e:  # every phase's failure fails the run
         import traceback
         traceback.print_exc()

@@ -94,7 +94,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """``lib`` with the argument and result types of the kernels' C entry
     points declared."""
     lib.repro_masked_argmax_packed.argtypes = [
-        _P, ctypes.c_longlong, _P, _I, _I, _I, _P, _P, _P]
+        _I, _P, ctypes.c_longlong, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+        _P]
     lib.repro_masked_argmax_packed.restype = _I
     lib.repro_decode_attention.argtypes = [
         _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -109,7 +110,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.repro_decode_attention_split_smem.argtypes = [_I, _I]
     lib.repro_decode_attention_split_smem.restype = ctypes.c_longlong
     lib.repro_masked_argmax_bytes.argtypes = [
-        _P, ctypes.c_longlong, _P, ctypes.c_longlong, _I, _I, _P, _P, _P]
+        _I, _P, ctypes.c_longlong, _P, ctypes.c_longlong, _I, _I, _I, _I, _P,
+        _P, _P, _P, _P]
     lib.repro_masked_argmax_bytes.restype = _I
     lib.repro_mamba_scan.argtypes = [_P] * 8 + [_I] * 7 + [_P]
     lib.repro_mamba_scan.restype = _I

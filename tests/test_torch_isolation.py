@@ -68,7 +68,8 @@ def test_no_source_line_imports_jax_or_repro():
                                   "time_decode_attention.py",
                                   "time_split_attention.py",
                                   "time_mamba_scan.py",
-                                  "time_ssd_scan.py"])
+                                  "time_ssd_scan.py",
+                                  "time_masked_argmax.py"])
 def test_port_tool_imports_no_jax_or_repro(tool):
     """The port's timing tools run on the card's machine, which has no
     JAX: no line of theirs imports it or the JAX package."""

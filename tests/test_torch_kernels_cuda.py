@@ -6,7 +6,8 @@ PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerances: the argmax is bitwise (byte mask and packed mask alike);
+Tolerances: the argmax is bitwise (byte mask and packed mask alike, on
+float32, bfloat16 and float16 logits);
 float32 attention atol 1e-5 (only the summation order differs), the split
 score of absorbed MLA atol = rtol = 1e-4 (576-long dot products in another
 order); bfloat16 attention, both scores (the split score's products on the
@@ -30,7 +31,9 @@ from repro_torch.kernels.decode_attention.ref import (decode_attention_ref,
                                                       gather_pages)
 from repro_torch.kernels.masked_sample import kernel as mask_kernel
 from repro_torch.kernels.masked_sample.ops import masked_argmax
-from repro_torch.kernels.masked_sample.ref import masked_argmax_ref
+from repro_torch.kernels.masked_sample.ref import (argmax_plan,
+                                                   masked_argmax_ref,
+                                                   unpack_bits)
 from repro_torch.kernels.mamba_scan import kernel as mamba_kernel
 from repro_torch.kernels.mamba_scan.ops import mamba_scan
 from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
@@ -64,6 +67,139 @@ def test_masked_argmax_kernel_matches_plain(cuda_device, b, v):
     assert mask_kernel.masked_argmax_packed.launches == before + 1
     i_p, v_p = masked_argmax_ref(lg, bits)
     assert torch.equal(i_k, i_p) and torch.equal(v_k, v_p)
+
+
+def _argmax_case(device, b, v, dtype=torch.float32, stride_pad=64, col0=0,
+                 seed=None):
+    """``mask_case`` on the card: logits in ``dtype`` as a view of rows
+    ``v + stride_pad`` wide starting at column ``col0`` (an odd pad or col0
+    leaves rows that are not 16-byte aligned), packed int32 words and the
+    same mask as bools."""
+    logits, words = mask_case(b, v, seed=b + v if seed is None else seed)
+    wide = np.zeros((b, col0 + v + stride_pad), np.float32)
+    wide[:, col0:col0 + v] = logits
+    lg = torch.from_numpy(wide).to(device=device, dtype=dtype)[:, col0:col0 + v]
+    bits = torch.from_numpy(words.view(np.int32)).to(device)
+    return lg, bits, unpack_bits(bits, v)
+
+
+def _both_equal_plain(lg, bits, mask):
+    """Both kernels, one launch each, bitwise equal to the plain version
+    and to each other; returns the packed kernel's result."""
+    before = (mask_kernel.masked_argmax_packed.launches,
+              mask_kernel.masked_argmax_bytes.launches)
+    got_p = masked_argmax(lg, bits)
+    got_b = masked_argmax(lg, mask)
+    assert (mask_kernel.masked_argmax_packed.launches,
+            mask_kernel.masked_argmax_bytes.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = masked_argmax_ref(lg, bits)
+    for got in (got_p, got_b):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    return got_p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("stride_pad,col0", [(64, 0), (1, 0), (3, 1),
+                                             (0, 5)])
+@pytest.mark.parametrize("b,v", [(4, 403), (3, 4099), (4, 100352),
+                                 (4, 129280)])
+def test_masked_argmax_kernels_strides_and_dtypes(cuda_device, b, v, dtype,
+                                                  stride_pad, col0):
+    """Packed and byte-mask kernels on float32, bfloat16 and float16 logits,
+    with row strides that are odd and rows that start off a 16-byte
+    boundary (the scalar head and tail around the vectors), against the
+    plain version bitwise: row 1 all illegal, row 2 ties over the row."""
+    lg, bits, mask = _argmax_case(cuda_device, b, v, dtype, stride_pad, col0)
+    i_k, v_k = _both_equal_plain(lg, bits, mask)
+    assert i_k[1].item() == 0 and v_k[1].item() == np.float32(-1e30)
+    assert i_k[2].item() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,v", [(4, 100352), (2, 8193), (64, 262144)])
+def test_masked_argmax_ties_across_split_edges(cuda_device, b, v, dtype):
+    """An equal maximum on either side of each of the plan's split edges
+    (row 0), and in the last token of one split and the first of the next
+    only (row 1): the lowest index wins."""
+    plan = argmax_plan(b, v)
+    assert plan.n_split > 1
+    lg, bits, mask = _argmax_case(cuda_device, b, v, dtype, stride_pad=3)
+    edges = [s * plan.split_len for s in range(1, plan.n_split)]
+    for r, toks in ((0, [t for e in edges for t in (e - 1, e)]),
+                    (1, [edges[-1] - 1, edges[-1]])):
+        for t in toks:
+            lg[r, t] = 9.0
+            bits[r, t // 32] |= torch.tensor(1 << (t % 32), dtype=torch.int64
+                                             ).to(torch.int32).item()
+            mask[r, t] = True
+    i_k, v_k = _both_equal_plain(lg, bits, mask)
+    assert i_k[0].item() == edges[0] - 1 and v_k[0].item() == 9.0
+    assert i_k[1].item() == edges[-1] - 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,v", [(4, 403), (4, 100352), (64, 262144)])
+def test_masked_argmax_nan_row(cuda_device, b, v, dtype):
+    """A legal NaN in one split of row 0 never wins: row 0 equals the
+    plain version with that logit at -inf, the other rows the plain
+    version."""
+    lg, bits, mask = _argmax_case(cuda_device, b, v, dtype)
+    t = v // 3                                # a legal NaN
+    lg[0, t] = float("nan")
+    bits[0, t // 32] |= torch.tensor(1 << (t % 32), dtype=torch.int64
+                                     ).to(torch.int32).item()
+    mask[0, t] = True
+    lg_inf = lg.clone()
+    lg_inf[0, t] = float("-inf")
+    want = masked_argmax_ref(lg_inf, bits)
+    for m in (bits, mask):
+        i_k, v_k = masked_argmax(lg, m)
+        assert torch.equal(i_k, want[0]) and torch.equal(v_k, want[1])
+    i_p, v_p = masked_argmax_ref(lg, bits)
+    assert torch.equal(i_k[1:], i_p[1:]) and torch.equal(v_k[1:], v_p[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,v", [(4, 100352), (64, 262144)])
+def test_masked_argmax_large(cuda_device, b, v):
+    """B=64 at gemma3-27b's 262144-token vocabulary (67 MB of float32
+    logits, above the L2) and B=4 at stablelm's: both kernels bitwise equal
+    to the plain version, two calls bitwise equal."""
+    lg, bits, mask = _argmax_case(cuda_device, b, v, stride_pad=0)
+    first = _both_equal_plain(lg, bits, mask)
+    for m in (bits, mask):
+        again = masked_argmax(lg, m)
+        assert torch.equal(first[0], again[0]) and \
+            torch.equal(first[1], again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,v", [(4, 403), (4, 100352)])
+def test_masked_argmax_reads_nothing_to_host(cuda_device, b, v):
+    """A call (one split a row, or several merged) makes no host sync and
+    leaves this stream's merge counters zero."""
+    lg, bits, mask = _argmax_case(cuda_device, b, v)
+    for m in (bits, mask):
+        masked_argmax(lg, m)                  # build, load and allocate
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [masked_argmax(lg, m) for m in (bits, mask)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = masked_argmax_ref(lg, bits)
+    for i_k, v_k in got:
+        assert torch.equal(i_k, want[0]) and torch.equal(v_k, want[1])
+    key = (cuda_device.index or 0,
+           torch.cuda.current_stream(cuda_device).cuda_stream)
+    if argmax_plan(b, v).n_split > 1:
+        counters, _ = mask_kernel._SCRATCH[key]
+        assert int(counters.abs().sum()) == 0
 
 
 @pytest.mark.cuda
