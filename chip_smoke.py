@@ -55,17 +55,35 @@ non-zero without the final result line):
     before the next is drawn.  For each:
     (a) float32 through the kernels against the same requests through the
     plain path (greedy ids and statuses equal), (b) bfloat16 through the
-    kernels (tokens/s, the tick's breakdown, launches a tick).  Every
-    kernel counter is set to 0 just before a run and read just after it;
-    a kernel of the model's path that did not launch, or launched another
-    number of times than its layers say, fails the phase;
+    kernels (tokens/s, the tick's breakdown, launches a tick), (c) float32
+    speculative decoding (paper section 3.6: ``spec_s`` 8, threshold 0.4,
+    the schema-heavy ``json_gsm8k`` grammar) through the kernels against
+    the plain path, each engine's count model warmed by one speculative
+    call of the single-request path: ids, statuses, proposals and
+    acceptances equal, some proposals accepted and some rejected (so the
+    per-row rollback, or the refeed of recurrent rows from the pre-verify
+    state, ran), ids equal to the same requests decoded without
+    speculation (deepseek-v3: printed, not required, as its MoE routes the
+    window's pads with the real tokens), (d) bfloat16 speculative decoding
+    beside the same requests decoded plainly, run plain, speculative,
+    speculative, plain (tokens/s, forwards a token, accepted/proposed, the
+    tick's breakdown: verify forward, host verification, refeed forwards;
+    and the snapshot copy of the recurrent state, timed on the card).  Every kernel counter is set to 0
+    just before a run and read just after it, and the run's forwards are
+    counted by wrapping the engine's prefill and decode steps; a kernel of
+    the model's path that did not launch, or launched another number of
+    times than its layers and the run's prefill, plain, verify and refeed
+    forwards say, fails the phase;
  6. the public ``masked_argmax`` op on byte masks (the entry point that
     reaches the byte-mask kernel, which no serving path calls): the
     deepseek-v3 bf16 run's ticks replayed through it with their masks
     unpacked to bytes, counters reset just before and read just after;
  7. each kernel's launches on the serving paths, its parity, and its time
     beside its plain version, its bound and a library yardstick, on the
-    inputs a serving path gave it.
+    inputs a serving path gave it; for #1 (paged and contiguous), #1b, #4
+    and #5 also on a mid-run verify call (S = 1 + spec_s) of the bf16
+    speculative runs, with that run's launches and the card's name and
+    power limit (``verify``, ``verify_contiguous``).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -95,6 +113,12 @@ SCAN_TOL = 1e-4
 SPLIT_TOL = 1e-4           # split-score attention, float32
 PROMPTS = ["A person encoded as a JSON object: ", "Results: ", "Config: ",
            "Data record: "]
+# speculation (paper section 3.6) over the schema-heavy grammar, with the
+# knobs of the reference's speculation tests
+SPEC_PROMPTS = ["Q: compute 1 + 2\nA: ", "A: ", "Q: what is 3 * 4?\nA: ",
+                "Solve it, answer as JSON: "]
+SPEC = dict(speculative=True, spec_s=8, spec_threshold=0.4)
+VERIFY_WIDTH = 1 + SPEC["spec_s"]
 # kernel name -> (package of its launch wrapper, the wrapper's name)
 KERNELS = {
     "decode_attention": ("repro_torch.kernels.decode_attention",
@@ -942,19 +966,23 @@ def phase_scans(torch):
 
 class Recorder:
     """Keeps the inputs of the serving path's kernel calls (every
-    ``keep_every``-th call, for timing and parity on exactly those inputs)
-    while the call goes through the real wrapper, which does its own
-    launch counting."""
+    ``keep_every``-th call, and with ``width`` only those whose first
+    operand has that S on axis 1, for timing and parity on exactly those
+    inputs) while the call goes through the real wrapper, which does its
+    own launch counting.  A kept call keeps its operands alive: a refeed's
+    gathered state among them, which ``width`` leaves out."""
 
-    def __init__(self, module, name, keep_every=1):
+    def __init__(self, module, name, keep_every=1, width=None):
         self.module, self.name, self.every = module, name, keep_every
+        self.width = width
         self.fn = getattr(module, name)
         self.calls = []
         self.n = 0
 
     def __enter__(self):
         def wrapped(*args, **kw):
-            if self.n % self.every == 0:
+            if self.n % self.every == 0 and (
+                    self.width is None or args[0].shape[1] == self.width):
                 self.calls.append((args, kw))
             self.n += 1
             return self.fn(*args, **kw)
@@ -968,9 +996,14 @@ class Recorder:
 class PhaseTimer:
     """Host seconds spent in each phase of the scheduler's tick, summed over
     a run (a wrapper costs a few microseconds a call).  ``_run_decode`` is
-    the forward, the mask builds overlapped with it, and the wait for it."""
+    the forward (plain or verify), the mask builds overlapped with it, and
+    the wait for it; ``_verify_row`` the host verification of a row's
+    chain, ``_fixup_refeed`` the refeed forwards of recurrent rows and
+    their gathers and scatters, ``_shrink_pages`` the pages returned after
+    a rollback."""
     PHASES = ("_admit", "_ensure_pages", "_choose", "_commit_first",
-              "_run_decode")
+              "_run_decode", "_verify_row", "_fixup_refeed",
+              "_shrink_pages")
 
     def __init__(self, cls):
         self.cls = cls
@@ -991,6 +1024,40 @@ class PhaseTimer:
     def __exit__(self, *exc):
         for name, fn in self.orig.items():
             setattr(self.cls, name, fn)
+
+
+class ForwardCount:
+    """Counts an engine's forwards by wrapping its prefill and decode steps:
+    prefills, and decode forwards by their width S (plain 1, verify
+    ``VERIFY_WIDTH``, a refeed 1 + accepted)."""
+
+    def __init__(self, eng):
+        self.eng = eng
+        self.prefill = 0
+        self.decode = {}
+
+    @property
+    def n_decode(self) -> int:
+        return sum(self.decode.values())
+
+    def __enter__(self):
+        self.orig = (self.eng._prefill, self.eng._decode)
+
+        def prefill(*args, **kw):
+            self.prefill += 1
+            return self.orig[0](*args, **kw)
+
+        def decode(params, cache, tokens):
+            s = tokens.shape[1]
+            self.decode[s] = self.decode.get(s, 0) + 1
+            return self.orig[1](params, cache, tokens)
+
+        self.eng._prefill, self.eng._decode = prefill, decode
+        return self
+
+    def __exit__(self, *exc):
+        self.eng._prefill, self.eng._decode = self.orig
+        self.eng = self.orig = None      # the counts outlive the weights
 
 
 def path_kernels(cfg):
@@ -1014,11 +1081,11 @@ def path_kernels(cfg):
     return out
 
 
-def check_launches(cfg, counts, stats, what):
+def check_launches(cfg, counts, fwd, what):
     """Fail unless every kernel of the path launched, and the per-layer
-    kernels exactly once a layer of every forward."""
-    n_dec = stats["n_decode"]
-    n_pre = stats["n_fwd"] - n_dec
+    kernels exactly once a layer of every forward that ``fwd`` (a
+    ``ForwardCount``) counted: plain, verify and refeed decodes alike."""
+    n_dec, n_pre = fwd.n_decode, fwd.prefill
     for name, per in path_kernels(cfg).items():
         if counts[name] == 0:
             raise AssertionError(f"{what}: {name} never launched")
@@ -1077,7 +1144,7 @@ def phase_serve(torch, arch, shared):
                                      ServingEngine)
     from repro_torch.serving.scheduler import ContinuousBatchingScheduler
 
-    tok, json_g = shared["tok"], shared["grammar"]
+    tok, json_g, gsm_g = shared["tok"], shared["grammar"], shared["gsm8k"]
     base = get_config(arch)
     paged = kvcache.pageable(base)
 
@@ -1094,6 +1161,13 @@ def phase_serve(torch, arch, shared):
                         ConstraintSpec(grammar="json", mode="domino"),
                         DecodeParams(max_tokens=MAX_TOKENS, seed=i))
                 for i in range(N_REQUESTS)]
+    # the same schema-heavy requests with and without speculation
+    spec_reqs, gsm_reqs = (
+        [Request(SPEC_PROMPTS[i % len(SPEC_PROMPTS)],
+                 ConstraintSpec(grammar="gsm8k", mode="domino"),
+                 DecodeParams(max_tokens=MAX_TOKENS, seed=i,
+                              **(SPEC if spec else {})))
+         for i in range(N_REQUESTS)] for spec in (True, False))
 
     def engine_for(dtype, kernels, params=None):
         model = build_model(cfg_for(dtype, kernels))
@@ -1112,23 +1186,67 @@ def phase_serve(torch, arch, shared):
                 f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
         eng = ServingEngine(model, params, tok, max_len=MAX_LEN,
                             device="cuda")
-        shared["trees"] = eng.register_grammar("json", json_g,
-                                               tree_cache=shared["trees"])
+        for name, g in (("json", json_g), ("gsm8k", gsm_g)):
+            shared["trees"][name] = eng.register_grammar(
+                name, g, tree_cache=shared["trees"].get(name))
         return eng
 
-    def serve(eng):
-        return eng.generate_batch(requests, max_batch=N_REQUESTS,
+    def serve(eng, reqs=requests):
+        return eng.generate_batch(reqs, max_batch=N_REQUESTS,
                                   page_size=PAGE_SIZE)
 
-    def check_valid(results, what):
+    def check_valid(results, what, grammar=json_g):
         for i, r in enumerate(results):
             if r.status not in ("ok", "dead_end"):
                 raise AssertionError(f"{what}: request {i} ended "
                                      f"{r.status}: {r.error}")
-            d = DominoDecoder(json_g, list(tok.vocab), tok.eos_id)
+            d = DominoDecoder(grammar, list(tok.vocab), tok.eos_id)
             if not all(d.advance(t) for t in r.token_ids):
                 raise AssertionError(f"{what}: request {i} output leaves "
-                                     "the JSON grammar")
+                                     "its grammar")
+
+    def counted_run(eng, reqs, cfg, what, hooks=()):
+        """One ``generate_batch`` with every counter set to 0 just before
+        it and read just after; the per-layer launches checked against
+        the forwards it ran.  Returns (results, counts, forwards, stats,
+        wall seconds)."""
+        with contextlib.ExitStack() as stack:
+            for h in hooks:
+                stack.enter_context(h)
+            fwd = stack.enter_context(ForwardCount(eng))
+            reset_counts()
+            t0 = time.perf_counter()
+            res = serve(eng, reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+        stats = dict(eng.last_batch_stats)
+        # the scheduler's own counters agree with the wrapped steps: plain
+        # and verify forwards are its decodes, the rest refeeds
+        n_refeed = fwd.n_decode - stats["n_decode"]
+        if stats["n_fwd"] != fwd.prefill + fwd.n_decode or n_refeed < 0:
+            raise AssertionError(f"{what}: forwards {fwd.prefill} prefills "
+                                 f"+ {fwd.decode} decodes, scheduler "
+                                 f"{stats}")
+        check_launches(cfg, counts, fwd, what)
+        return res, counts, fwd, stats, wall
+
+    def spec_summary(res, fwd, stats):
+        prop = sum(r.n_spec_proposed for r in res)
+        acc = sum(r.n_spec_accepted for r in res)
+        n_verify = fwd.decode.get(VERIFY_WIDTH, 0)
+        n_plain = stats["n_decode"] - n_verify
+        # the scheduler's decodes are its plain and verify forwards; every
+        # other decode is a refeed, S = 1 + accepted
+        refeed = {s: n - (n_plain if s == 1 else 0)
+                  for s, n in sorted(fwd.decode.items())
+                  if s != VERIFY_WIDTH}
+        refeed = {s: n for s, n in refeed.items() if n}
+        return prop, acc, n_verify, sum(refeed.values()), (
+            f"accepted/proposed {acc}/{prop}; forwards: {fwd.prefill} "
+            f"prefills, {n_plain} plain, {n_verify} verify "
+            f"(S={VERIFY_WIDTH}), {sum(refeed.values())} refeed (count by "
+            f"S: {refeed})")
 
     # (a) float32: kernel path vs plain path, same weights and requests
     cfg32 = cfg_for("float32")
@@ -1137,25 +1255,20 @@ def phase_serve(torch, arch, shared):
         t0 = time.perf_counter()
         eng_k.precompute()
         shared["precomputed"] = True
-        log(f"[serve] grammar trees precomputed in "
+        log(f"[serve] grammar trees (json, json_gsm8k) precomputed in "
             f"{time.perf_counter() - t0:.1f}s")
     eng_p = engine_for("float32", False, params=eng_k.params)
-    reset_counts()
-    res_k = serve(eng_k)
-    torch.cuda.synchronize()
-    counts = read_counts()
-    stats = dict(eng_k.last_batch_stats)
+    res_k, counts, fwd, stats, _ = counted_run(eng_k, requests, cfg32,
+                                               f"{arch} f32 kernel run")
     res_p = serve(eng_p)
     check_valid(res_k, f"{arch} f32 kernel run")
     check_valid(res_p, f"{arch} f32 plain run")
     log(f"[serve] {arch} f32 kernel run: launches "
         + ", ".join(f"{k} {counts[k]}" for k in path_kernels(cfg32))
-        + f"; {stats['n_decode']} decode ticks, "
-        f"{stats['n_fwd'] - stats['n_decode']} admissions, layout "
-        f"{'paged' if stats['paged'] else 'dense'}")
+        + f"; {stats['n_decode']} decode ticks, {fwd.prefill} admissions, "
+        f"layout {'paged' if stats['paged'] else 'dense'}")
     if stats["paged"] != paged:
         raise AssertionError(f"{arch}: the scheduler chose the wrong layout")
-    check_launches(cfg32, counts, stats, f"{arch} f32 kernel run")
     for i, (a, b) in enumerate(zip(res_k, res_p)):
         log(f"[serve] {arch} f32 request {i}: status {a.status}, "
             f"{a.n_tokens} tokens, {a.n_interventions} interventions: "
@@ -1182,7 +1295,60 @@ def phase_serve(torch, arch, shared):
     log(f"[serve] {arch} f32 generate, request 0: {single.status}, ids "
         f"{'equal to' if single.token_ids == res_k[0].token_ids else 'DIFFERENT from'}"
         f" generate_batch")
-    del eng_k, eng_p, res_p, single
+    del eng_p, res_p, single
+
+    # (c) float32 speculation, through the kernels and through the plain
+    # path: each engine's count model (and proposal memo) warmed by one
+    # speculative call of the single-request path, which must agree
+    eng_sp = engine_for("float32", False, params=eng_k.params)
+    t0 = time.perf_counter()
+    warm = [e.generate(spec_reqs[0]) for e in (eng_k, eng_sp)]
+    log(f"[serve] {arch} f32 speculative generate (count model warm-up): "
+        f"{warm[0].status}, {warm[0].n_tokens} tokens in "
+        f"{warm[0].n_forward_passes} forwards, accepted/proposed "
+        f"{warm[0].n_spec_accepted}/{warm[0].n_spec_proposed}; plain path "
+        f"{'equal' if warm[0].token_ids == warm[1].token_ids else 'DIFFERENT'}"
+        f"; {time.perf_counter() - t0:.1f}s")
+    if warm[0].token_ids != warm[1].token_ids:
+        raise AssertionError(f"{arch} f32 speculative generate: kernel and "
+                             "plain paths differ")
+    res_n = serve(eng_k, gsm_reqs)            # plain rows observe nothing
+    res_sk, counts, fwd, stats, _ = counted_run(
+        eng_k, spec_reqs, cfg32, f"{arch} f32 speculative kernel run")
+    res_sp = serve(eng_sp, spec_reqs)
+    for r, what in ((res_n, "plain"), (res_sk, "speculative kernel"),
+                    (res_sp, "speculative plain")):
+        check_valid(r, f"{arch} f32 {what} run", gsm_g)
+    prop, acc, n_verify, n_refeed, text = spec_summary(res_sk, fwd, stats)
+    log(f"[serve] {arch} f32 speculative kernel run: {text}; launches "
+        + ", ".join(f"{k} {counts[k]}" for k in path_kernels(cfg32)))
+    for i, (a, b) in enumerate(zip(res_sk, res_sp)):
+        if (a.token_ids, a.status, a.n_spec_proposed, a.n_spec_accepted) \
+                != (b.token_ids, b.status, b.n_spec_proposed,
+                    b.n_spec_accepted):
+            raise AssertionError(
+                f"{arch} f32 speculative request {i}: kernel run "
+                f"({a.status}, {a.n_spec_accepted}/{a.n_spec_proposed}) and "
+                f"plain run ({b.status}, {b.n_spec_accepted}/"
+                f"{b.n_spec_proposed}) differ")
+    if acc == 0 or acc >= prop or n_verify == 0:
+        raise AssertionError(
+            f"{arch} f32 speculative run: accepted {acc} of {prop} "
+            f"proposals in {n_verify} verify forwards; needs an acceptance "
+            "and a rejection")
+    if eng_k._needs_refeed != (n_refeed > 0):
+        raise AssertionError(f"{arch}: {n_refeed} refeed forwards on a "
+                             f"{'refeed' if eng_k._needs_refeed else 'rollback'}"
+                             " architecture")
+    same = [a.token_ids == b.token_ids for a, b in zip(res_sk, res_n)]
+    log(f"[serve] {arch} f32 speculative: kernel path == plain path "
+        f"(ids, statuses, accepted, proposed) for every request; ids equal "
+        f"to the non-speculative run: {same}")
+    # deepseek-v3's MoE routes the verify window's pads with the real
+    # tokens, and its capacity drops depend on the batch: not required
+    if not all(same) and arch != "deepseek-v3-671b":
+        raise AssertionError(f"{arch} f32: speculation changed the ids")
+    del eng_k, eng_sp, res_k, res_n, res_sk, res_sp, warm
     torch.cuda.empty_cache()
 
     # (b) bfloat16, the published dtype, through the kernels
@@ -1192,36 +1358,43 @@ def phase_serve(torch, arch, shared):
     torch.cuda.synchronize()
     head, reps, group, tail = cfg16.layer_program
     blocks = list(head) + list(group) * reps + list(tail)
-    recs = {
-        "decode_attention": Recorder(attn_ops, "decode_attention_cuda"),
-        "decode_attention_split": Recorder(attn_ops,
-                                           "decode_attention_split_cuda"),
-        "masked_argmax_packed": Recorder(mask_ops, "masked_argmax_packed"),
-        "mamba_scan": Recorder(mamba_ops, "mamba_scan_cuda",
-                               max(1, blocks.count("mamba1"))),
-        "ssd_scan": Recorder(ssd_ops, "ssd_scan_cuda",
-                             max(1, blocks.count("mamba2"))),
-    }
+    per = {k: v for k, v in path_kernels(cfg16).items() if v}
+
+    def recorders(verify=False):
+        """Every attention and selection call and the first scan layer's
+        of each forward; or (``verify``) the first layer's calls of each
+        verify forward."""
+        def every(name):
+            return per[name][0] if verify and name in per else 1
+        width = VERIFY_WIDTH if verify else None
+        recs = {
+            "decode_attention": Recorder(attn_ops, "decode_attention_cuda",
+                                         every("decode_attention"), width),
+            "decode_attention_split": Recorder(
+                attn_ops, "decode_attention_split_cuda",
+                every("decode_attention_split"), width),
+            "mamba_scan": Recorder(mamba_ops, "mamba_scan_cuda",
+                                   max(1, blocks.count("mamba1")), width),
+            "ssd_scan": Recorder(ssd_ops, "ssd_scan_cuda",
+                                 max(1, blocks.count("mamba2")), width),
+        }
+        if not verify:
+            recs["masked_argmax_packed"] = Recorder(mask_ops,
+                                                    "masked_argmax_packed")
+        return recs
+
+    recs = recorders()
     phases = PhaseTimer(ContinuousBatchingScheduler)
-    with contextlib.ExitStack() as hooks:
-        for r in (*recs.values(), phases):
-            hooks.enter_context(r)
-        reset_counts()
-        t0 = time.perf_counter()
-        res = serve(eng)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = read_counts()
-    stats = dict(eng.last_batch_stats)
+    res, counts, fwd, stats, wall = counted_run(
+        eng, requests, cfg16, f"{arch} bf16 run",
+        hooks=(*recs.values(), phases))
     ticks = stats["n_decode"]
     check_valid(res, f"{arch} bf16 run")
-    check_launches(cfg16, counts, stats, f"{arch} bf16 run")
     n_tok = sum(r.n_tokens for r in res)
     log(f"[serve] {arch} bf16: {n_tok} tokens in {wall:.3f}s = "
         f"{n_tok / wall:.1f} tok/s; {ticks} decode ticks, "
-        f"{stats['n_fwd'] - ticks} admissions; statuses "
-        f"{[r.status for r in res]}")
-    n_pre = stats["n_fwd"] - ticks
+        f"{fwd.prefill} admissions; statuses {[r.status for r in res]}")
+    n_pre = fwd.prefill
     log(f"[serve] {arch} bf16 launches: "
         + "; ".join(f"{k} {counts[k]}" + (
             f" = {per[0]} a decode forward x {ticks} + {per[1]} an "
@@ -1242,7 +1415,67 @@ def phase_serve(torch, arch, shared):
                     lengths, table, layers_mod)
     out = {"counts": counts,
            "calls": {k: r.calls for k, r in recs.items() if r.calls}}
-    del eng, res
+    del res, recs
+
+    # (d) bfloat16 speculation beside the same requests decoded plainly,
+    # after a speculative warm-up run (shapes, count model), in the order
+    # plain, speculative, speculative, plain: the host's clock drifts
+    serve(eng, spec_reqs)
+    runs = {}
+    for what in ("plain 1", "speculative 1", "speculative 2", "plain 2"):
+        reqs = spec_reqs if what.startswith("spec") else gsm_reqs
+        recs = recorders(True) if what == "speculative 1" else {}
+        phases = PhaseTimer(ContinuousBatchingScheduler)
+        r, counts, fwd, stats, wall = counted_run(
+            eng, reqs, cfg16, f"{arch} bf16 {what} run",
+            hooks=(*recs.values(), phases))
+        check_valid(r, f"{arch} bf16 {what} run", gsm_g)
+        runs[what] = (r, counts, fwd, stats, wall, phases.seconds, recs)
+    tok_s = {}
+    for what, (r, counts, fwd, stats, wall, sec, _) in runs.items():
+        n_tok = sum(x.n_tokens for x in r)
+        n_fwd = fwd.prefill + fwd.n_decode
+        ticks = stats["n_decode"]
+        per_tick = {k.strip("_"): v / ticks * 1e3 for k, v in sec.items()
+                    if v}
+        row_fwd = sum(x.n_forward_passes for x in r)
+        tok_s.setdefault(what.split()[0], []).append(n_tok / wall)
+        log(f"[serve] {arch} bf16 {what} (json_gsm8k): {n_tok} tokens in "
+            f"{wall:.3f}s = {n_tok / wall:.1f} tok/s; {n_fwd} batch "
+            f"forwards = {n_fwd / n_tok:.3f} a token, a request's forwards "
+            f"{row_fwd / n_tok:.3f} a token; {ticks} ticks; "
+            + spec_summary(r, fwd, stats)[4])
+        log(f"[serve] {arch} bf16 {what} tick, host ms per tick: wall "
+            f"{wall / ticks * 1e3:.2f} = "
+            + " + ".join(f"{k} {v:.2f}" for k, v in per_tick.items())
+            + f" + other {wall / ticks * 1e3 - sum(per_tick.values()):.2f}")
+    spec_counts = runs["speculative 1"][1]
+    log(f"[serve] {arch} bf16 speculative 1 launches: "
+        + ", ".join(f"{k} {spec_counts[k]}" for k in path_kernels(cfg16)))
+    mean = {k: sum(v) / len(v) for k, v in tok_s.items()}
+    log(f"[serve] {arch} bf16 tok/s, speculative over plain (means of two "
+        f"runs each): {mean['speculative']:.1f} / {mean['plain']:.1f} = "
+        f"{mean['speculative'] / mean['plain']:.3f}")
+    if eng._needs_refeed:
+        # the copy a verify tick makes of every row's recurrent state
+        cache = eng.model.init_cache(N_REQUESTS, MAX_LEN, device="cuda")
+        snap = kvcache.snapshot_state(cache)
+        n_bytes = 2 * sum(v.numel() * v.element_size()
+                          for blk in (cache["head"] + cache["tail"]
+                                      + list(cache["group"].values()))
+                          for k, v in blk.items()
+                          if k in kvcache.RECURRENT_LEAVES)
+        ms = time_ms(torch, lambda: kvcache.snapshot_state(cache, snap))
+        log(f"[serve] {arch} bf16 snapshot of the recurrent state at "
+            f"B={N_REQUESTS}: {n_bytes / 2e6:.1f} MB copied in {ms:.4f} ms "
+            f"on the card (bound {bound_ms(n_bytes, 0, 'bfloat16')[0]:.4f} "
+            "ms by bytes)")
+        del cache, snap
+    out["spec"] = {"counts": spec_counts,
+                   "calls": {k: r.calls
+                             for k, r in runs["speculative 1"][6].items()
+                             if r.calls}}
+    del eng, runs
     torch.cuda.empty_cache()
     log(f"[serve] {arch} weights freed: {torch.cuda.memory_allocated() / 1e9:.2f}"
         " GB still allocated")
@@ -1415,8 +1648,21 @@ def _mid_decode_call(calls, seq_axis):
     return pick[len(pick) // 2]
 
 
-def phase_kernels(torch, paths, scans, attn_long, split_long, argmax_long):
-    """Each kernel on the inputs of a mid-run call of a serving path."""
+def _mid_verify_call(calls, what):
+    """A mid-run verify call (S = ``VERIFY_WIDTH`` on axis 1 of the first
+    operand) of a recorded list."""
+    ver = [c for c in calls if c[0][0].shape[1] == VERIFY_WIDTH]
+    if not ver:
+        raise AssertionError(f"{what}: no call at the verify width "
+                             f"S={VERIFY_WIDTH} was recorded")
+    return ver[len(ver) // 2]
+
+
+def phase_kernels(torch, card, paths, scans, attn_long, split_long,
+                  argmax_long):
+    """Each kernel on the inputs of a mid-run call of a serving path, and
+    the attention and scan kernels also on a mid-run verify call (S =
+    ``VERIFY_WIDTH``) of a bf16 speculative run."""
     from repro_torch.kernels.decode_attention.kernel import (
         decode_attention_cuda, decode_attention_split_cuda)
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
@@ -1432,6 +1678,14 @@ def phase_kernels(torch, paths, scans, attn_long, split_long, argmax_long):
         by = {arch: p["counts"][name] for arch, p in paths.items()
               if p["counts"][name]}
         return sum(by.values()), by
+
+    def verify(entry_fn, name, arch):
+        """``entry_fn`` on a mid-run verify call of ``arch``'s bf16
+        speculative run, with that run's launches and the card."""
+        spec = paths[arch]["spec"]
+        call = _mid_verify_call(spec["calls"][name], f"{name} on {arch}")
+        return dict(entry_fn(call, f"{arch} verify"),
+                    launches=spec["counts"][name], card=card)
 
     out = []
     n, by = launches("masked_argmax_packed")
@@ -1460,19 +1714,18 @@ def phase_kernels(torch, paths, scans, attn_long, split_long, argmax_long):
         "bound_ms": bnd, "bound_by": bnd_by, "library_ms": None,
         **argmax_long["packed"]})
 
-    def attn_entry(arch):
-        calls = paths[arch]["calls"]["decode_attention"]
-        (q, kp, vp, ln), kw = calls[len(calls) // 2]
+    def attn_entry(call, what):
+        (q, kp, vp, ln), kw = call
         tbl = kw.get("block_tables")
         got = decode_attention_cuda(q, kp, vp, ln, block_tables=tbl)
         want = decode_attention_ref(q, kp, vp, ln, block_tables=tbl)
         torch.cuda.synchronize()
-        err = _check_attn(torch, got, want, q.dtype, f"{arch} inputs")
+        err = _check_attn(torch, got, want, q.dtype, f"{what} inputs")
         bnd, bnd_by = _attn_bound(q, kp, ln, tbl, "bfloat16")
         return {
             "max_abs_err": err,
             "shape": (f"q {tuple(q.shape)} {'pool' if tbl is not None else 'stripes'} "
-                      f"{tuple(kp.shape)} lengths {ln.tolist()} ({arch}, "
+                      f"{tuple(kp.shape)} lengths {ln.tolist()} ({what}, "
                       f"{'paged' if tbl is not None else 'contiguous'}; "
                       f"{_plan_text(q, kp, tbl)})"),
             "ms": time_ms(torch, lambda: decode_attention_cuda(
@@ -1483,49 +1736,68 @@ def phase_kernels(torch, paths, scans, attn_long, split_long, argmax_long):
             "library_ms": time_ms(torch, _sdpa_yardstick(torch, q, kp, vp,
                                                          ln, tbl))}
 
+    def mid(arch, name):
+        calls = paths[arch]["calls"][name]
+        return calls[len(calls) // 2]
+
     n, by = launches("decode_attention")
     entry = {"name": "decode_attention", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
              "replaces": "src/repro/kernels/decode_attention/kernel.py:121",
              "launches": n, "launches_by_path": by,
              "parity": "atol/rtol 2e-2 (bf16)"}
-    entry.update(attn_entry("stablelm-1.6b"))
-    entry["contiguous"] = attn_entry("zamba2-1.2b")
+    entry.update(attn_entry(mid("stablelm-1.6b", "decode_attention"),
+                            "stablelm-1.6b"))
+    entry["contiguous"] = attn_entry(mid("zamba2-1.2b", "decode_attention"),
+                                     "zamba2-1.2b")
     entry["long"] = attn_long["long"]
     entry["long_cold"] = attn_long["long_cold"]
+    entry["verify"] = verify(attn_entry, "decode_attention", "stablelm-1.6b")
+    entry["verify_contiguous"] = verify(attn_entry, "decode_attention",
+                                        "zamba2-1.2b")
     out.append(entry)
+
+    def split_entry(call, what):
+        (q, lat, _, q2, rp, ln), kw = call
+        tbl, scale = kw.get("block_tables"), kw["scale"]
+        got = decode_attention_split_cuda(q, lat, lat, q2, rp, ln,
+                                          scale=scale, block_tables=tbl)
+        want = decode_attention_ref(q, lat, lat, ln, scale=scale, q2=q2,
+                                    k2=rp, block_tables=tbl)
+        torch.cuda.synchronize()
+        bnd, bnd_by = _split_bound(q, q2, lat, ln, tbl, "bfloat16")
+        return {
+            "max_abs_err": _check_split(torch, got, want, q.dtype,
+                                        f"{what} inputs"),
+            "shape": (f"q {tuple(q.shape)} q2 {tuple(q2.shape)} pools "
+                      f"{tuple(lat.shape)} / {tuple(rp.shape)} lengths "
+                      f"{ln.tolist()} ({what}, paged; "
+                      f"{_split_plan_text(q, q2, lat, tbl)})"),
+            "ms": time_ms(torch, lambda: decode_attention_split_cuda(
+                q, lat, lat, q2, rp, ln, scale=scale, block_tables=tbl)),
+            "plain_ms": time_ms(torch, lambda: decode_attention_ref(
+                q, lat, lat, ln, scale=scale, q2=q2, k2=rp,
+                block_tables=tbl)),
+            "bound_ms": bnd, "bound_by": bnd_by,
+            "library_ms": time_ms(torch, _split_sdpa_yardstick(
+                torch, q, q2, lat, rp, ln, tbl, scale))}
 
     # the split score, at a mid-run decode call of deepseek-v3's bf16 run
     n, by = launches("decode_attention_split")
-    calls = paths["deepseek-v3-671b"]["calls"]["decode_attention_split"]
-    (q, lat, _, q2, rp, ln), kw = calls[len(calls) // 2]
-    tbl, scale = kw.get("block_tables"), kw["scale"]
-    got = decode_attention_split_cuda(q, lat, lat, q2, rp, ln, scale=scale,
-                                      block_tables=tbl)
-    want = decode_attention_ref(q, lat, lat, ln, scale=scale, q2=q2, k2=rp,
-                                block_tables=tbl)
-    torch.cuda.synchronize()
-    bnd, bnd_by = _split_bound(q, q2, lat, ln, tbl, "bfloat16")
-    out.append({
+    entry = {
         "name": "decode_attention_split", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention/kernel.py:121",
         "launches": n, "launches_by_path": by,
-        "parity": "atol/rtol 2e-2 (bf16)",
-        "max_abs_err": _check_split(torch, got, want, q.dtype,
-                                    "deepseek-v3-671b inputs"),
-        "shape": (f"q {tuple(q.shape)} q2 {tuple(q2.shape)} pools "
-                  f"{tuple(lat.shape)} / {tuple(rp.shape)} lengths "
-                  f"{ln.tolist()} (deepseek-v3-671b, paged; "
-                  f"{_split_plan_text(q, q2, lat, tbl)})"),
-        "ms": time_ms(torch, lambda: decode_attention_split_cuda(
-            q, lat, lat, q2, rp, ln, scale=scale, block_tables=tbl)),
-        "plain_ms": time_ms(torch, lambda: decode_attention_ref(
-            q, lat, lat, ln, scale=scale, q2=q2, k2=rp, block_tables=tbl)),
-        "bound_ms": bnd, "bound_by": bnd_by,
-        "library_ms": time_ms(torch, _split_sdpa_yardstick(
-            torch, q, q2, lat, rp, ln, tbl, scale)),
-        "long": split_long["long"], "long_cold": split_long["long_cold"]})
+        "parity": "atol/rtol 2e-2 (bf16)"}
+    entry.update(split_entry(mid("deepseek-v3-671b",
+                                 "decode_attention_split"),
+                             "deepseek-v3-671b"))
+    entry["long"] = split_long["long"]
+    entry["long_cold"] = split_long["long_cold"]
+    entry["verify"] = verify(split_entry, "decode_attention_split",
+                             "deepseek-v3-671b")
+    out.append(entry)
 
     # the byte mask, at a mid-run tick of the op path's replay
     n, by = launches("masked_argmax_bytes")
@@ -1560,13 +1832,21 @@ def phase_kernels(torch, paths, scans, attn_long, split_long, argmax_long):
              lambda a: _ssd_bound(a[0], a[1].shape[-1]),
              lambda a: "B={} S={} H={} D={} N={}".format(*a[0].shape,
                                                          a[1].shape[-1]))):
+        def scan_entry(call, what, fn=fn, ref=ref, bound=bound,
+                       shape_of=shape_of, name=name):
+            args, _ = call
+            got = fn(*args)
+            want = ref(*args)
+            torch.cuda.synchronize()
+            err = _scan_err(torch, got, want, f"{name} on {what} inputs")
+            bnd, bnd_by = bound(args)
+            return {
+                "max_abs_err": err, "shape": f"{shape_of(args)} ({what})",
+                "ms": time_ms(torch, lambda: fn(*args)),
+                "plain_ms": time_ms(torch, lambda: ref(*args)),
+                "bound_ms": bnd, "bound_by": bnd_by, "library_ms": None}
+
         n, by = launches(name)
-        args, _ = _mid_decode_call(paths[arch]["calls"][name], 1)
-        got = fn(*args)
-        want = ref(*args)
-        torch.cuda.synchronize()
-        err = _scan_err(torch, got, want, f"{name} on {arch} inputs")
-        bnd, bnd_by = bound(args)
         entry = {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
@@ -1574,12 +1854,11 @@ def phase_kernels(torch, paths, scans, attn_long, split_long, argmax_long):
                          if name == "mamba_scan" else
                          "src/repro/kernels/ssd_scan/kernel.py:63"),
             "launches": n, "launches_by_path": by,
-            "parity": f"atol/rtol {SCAN_TOL} (f32)", "max_abs_err": err,
-            "shape": f"{shape_of(args)} ({arch} decode)",
-            "ms": time_ms(torch, lambda: fn(*args)),
-            "plain_ms": time_ms(torch, lambda: ref(*args)),
-            "bound_ms": bnd, "bound_by": bnd_by, "library_ms": None}
+            "parity": f"atol/rtol {SCAN_TOL} (f32)"}
+        entry.update(scan_entry(_mid_decode_call(paths[arch]["calls"][name],
+                                                 1), f"{arch} decode"))
         entry.update(scans[name])
+        entry["verify"] = verify(scan_entry, name, arch)
         out.append(entry)
     for k in out:
         lib = ("" if k["library_ms"] is None
@@ -1588,10 +1867,16 @@ def phase_kernels(torch, paths, scans, attn_long, split_long, argmax_long):
             f"{k['launches_by_path']}, {k['ms']:.4f} ms (plain "
             f"{k['plain_ms']:.4f} ms{lib}, bound {k['bound_ms']:.6f} ms by "
             f"{k['bound_by']}) at {k['shape']}")
-        if "contiguous" in k:
-            c = k["contiguous"]
-            log(f"[kernel] {k['name']} contiguous: {c['ms']:.4f} ms (plain "
-                f"{c['plain_ms']:.4f} ms, library {c['library_ms']:.4f} ms, "
+        for sub in ("contiguous", "verify", "verify_contiguous"):
+            if sub not in k:
+                continue
+            c = k[sub]
+            lib = ("" if c["library_ms"] is None
+                   else f", library {c['library_ms']:.4f} ms")
+            log(f"[kernel] {k['name']} {sub}"
+                + (f" ({c['launches']} launches in the speculative run, "
+                   f"{c['card']})" if "launches" in c else "")
+                + f": {c['ms']:.4f} ms (plain {c['plain_ms']:.4f} ms{lib}, "
                 f"bound {c['bound_ms']:.6f} ms by {c['bound_by']}) at "
                 f"{c['shape']}")
     return out
@@ -1600,10 +1885,11 @@ def phase_kernels(torch, paths, scans, attn_long, split_long, argmax_long):
 def _finite(k) -> bool:
     nums = [k[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms",
                                "max_abs_err")]
-    for sub in ("contiguous", "long", "long_cold"):
+    for sub in ("contiguous", "long", "long_cold", "verify",
+                "verify_contiguous"):
         if sub in k:
             nums += [k[sub].get(key) for key in ("ms", "plain_ms", "bound_ms",
-                                                 "library_ms")]
+                                                 "library_ms", "max_abs_err")]
     return all(x is None or math.isfinite(x) for x in nums)
 
 
@@ -1648,13 +1934,14 @@ def main() -> int:
                         vocab_size=400)
         log(f"[serve] tokenizer: {tok.vocab_size} tokens, trained in "
             f"{time.perf_counter() - t0:.1f}s")
-        shared = {"tok": tok, "grammar": json_g, "trees": None}
+        shared = {"tok": tok, "grammar": json_g,
+                  "gsm8k": grammars.load("json_gsm8k"), "trees": {}}
         paths = {arch: timed(f"serve {arch}", phase_serve, torch, arch,
                              shared)
                  for arch in MODELS}
         paths[MASK_OP_PATH] = timed("masked_argmax op", phase_mask_op, torch,
                                     paths["deepseek-v3-671b"])
-        kernels = timed("kernels", phase_kernels, torch, paths, scans,
+        kernels = timed("kernels", phase_kernels, torch, card, paths, scans,
                         attn_long, split_long, argmax_long)
     except Exception as e:  # every phase's failure fails the run
         import traceback

@@ -18,7 +18,8 @@ its published config (61 layers, 704 B parameters) does not fit one card,
 so on the card it serves at ``--smoke`` size here, and ``chip_smoke.py``
 serves it at full width with its depth cut.  The scheduler pages the
 cache only where every block is attention (GQA or MLA), and the header
-line says which layout it chose.
+line says which layout it chose.  ``--speculative --spec-s 8`` turns on
+speculative decoding; each result line then says ``spec accepted/proposed``.
 """
 import argparse
 
@@ -35,6 +36,11 @@ def parse_args(argv=None):
                          "prompts; 'none' entries serve unconstrained rows")
     ap.add_argument("--mode", default="domino",
                     choices=["unconstrained", "domino", "naive", "online"])
+    ap.add_argument("--speculative", action="store_true",
+                    help="speculative decoding (paper section 3.6): "
+                         "count-model proposals verified in one forward")
+    ap.add_argument("--spec-s", type=int, default=8,
+                    help="longest proposal chain a step")
     ap.add_argument("--max-tokens", type=int, default=64)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0,
@@ -100,7 +106,8 @@ def build_engine(args):
     engine.precompute()
 
     decode = DecodeParams(temperature=args.temperature,
-                          max_tokens=args.max_tokens)
+                          max_tokens=args.max_tokens,
+                          speculative=args.speculative, spec_s=args.spec_s)
     specs = [ConstraintSpec() if name == "none"
              or args.mode == "unconstrained"
              else ConstraintSpec(grammar=name, mode=args.mode)
@@ -133,7 +140,9 @@ def main(argv=None) -> None:
         print(f"--- prompt[{lbl}]: {req.prompt!r}")
         print(f"    out[status={r.status}, {r.n_tokens} toks, "
               f"{r.n_forward_passes} fwd, "
-              f"{r.n_interventions} interventions]: {r.text[:120]!r}"
+              f"{r.n_interventions} interventions, "
+              f"spec {r.n_spec_accepted}/{r.n_spec_proposed}]: "
+              f"{r.text[:120]!r}"
               + (f" error={r.error}" if r.error else ""))
 
 

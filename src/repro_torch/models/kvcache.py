@@ -136,3 +136,49 @@ def page_size_of(cache) -> Optional[int]:
         for v in blk.values():
             return v.shape[2]          # (reps, n_pages, ps, ...)
     return None
+
+
+# leaves a forward overwrites whole, which a rewound ``len`` cannot mask
+RECURRENT_LEAVES = ("conv", "ssm")
+
+
+def _block_pairs(a, b):
+    """(block of ``a``, the same block of ``b``) over a cache's head, tail
+    and group blocks."""
+    return (list(zip(a["head"], b["head"])) + list(zip(a["tail"], b["tail"]))
+            + [(a["group"][k], b["group"][k]) for k in a["group"]])
+
+
+def snapshot_state(cache, into=None) -> dict:
+    """A cache-shaped view of ``cache`` as it stands before a forward, for a
+    speculative refeed: ``len`` and every recurrent leaf (``conv``, ``ssm``)
+    copied -- into ``into``'s buffers when given, so a caller allocates
+    them once -- and every other leaf aliased.  K/V stripes and pools need
+    no copy: a forward writes them only at positions >= len, which a
+    rewound len masks and a refeed rewrites."""
+    def block(src, dst):
+        out = dict(src)
+        for name in RECURRENT_LEAVES:
+            if name in src:
+                out[name] = (src[name].clone() if dst is None
+                             else dst[name].copy_(src[name]))
+        return out
+
+    snap = dict(cache, len=cache["len"].clone())
+    for part in ("head", "tail"):
+        snap[part] = [block(b, into and into[part][i])
+                      for i, b in enumerate(cache[part])]
+    snap["group"] = {k: block(b, into and into["group"][k])
+                     for k, b in cache["group"].items()}
+    return snap
+
+
+def restore_state(cache, snap) -> dict:
+    """Write ``snap``'s recurrent leaves and ``len`` (from
+    :func:`snapshot_state`) back into ``cache``; returns ``cache``."""
+    for dst, src in _block_pairs(cache, snap):
+        for name in RECURRENT_LEAVES:
+            if name in dst:
+                dst[name].copy_(src[name])
+    cache["len"] = snap["len"]
+    return cache

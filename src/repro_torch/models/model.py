@@ -128,9 +128,10 @@ class Model:
 
     def rollback(self, cache, n_tokens: int):
         """Speculative rollback: rewind ``len`` (entries beyond len are
-        masked by validity, so nothing is copied).  SSM states cannot be
-        rewound; the JAX package refeeds them instead, which the port does
-        not do yet (speculation is not ported)."""
+        masked by validity, so nothing is copied).  Recurrent state
+        (Mamba1/Mamba2 ``conv``/``ssm``) cannot be rewound: the serving
+        engine refeeds such caches from ``kvcache.snapshot_state`` taken
+        before the verify forward instead."""
         out = dict(cache)
         out["len"] = cache["len"] - n_tokens
         return out

@@ -21,10 +21,15 @@ The model runs eagerly (the JAX package jits ``prefill``/``decode_step``).
 The legacy surface -- ``ServingEngine(model, params, tok, grammar,
 EngineConfig(...))`` plus bare-string prompts -- works as in the JAX package.
 
-Not ported yet (ROADMAP Queue 1): speculative decoding
-(``DecodeParams.speculative``), device grammar tables and the fused loop,
-``restore``/journaling, ``pin_prompt``/prefix cache and the template
-baseline ``generate_template``.
+Speculative decoding (paper section 3.6, ``DecodeParams.speculative``)
+proposes chains from ONE engine-wide count model and verifies each chain
+with one forward over the window: full-attention caches roll back by
+rewinding ``len``; recurrent caches (Mamba1/Mamba2) are refed from a copy
+of their state taken before the verify forward, because the port's caches
+are written in place.
+
+Not ported yet (ROADMAP Queue 1): device grammar tables and the fused
+loop, ``restore``/journaling and ``pin_prompt``/prefix cache.
 """
 from __future__ import annotations
 
@@ -37,10 +42,13 @@ import torch
 
 from repro_torch.core import bitmask
 from repro_torch.core.analysis import AnalysisReport, analyze, enforce
+from repro_torch.core.baselines import TemplateSession
 from repro_torch.core.grammar import Grammar
 from repro_torch.core.scanner import Scanner
+from repro_torch.core.speculation import CountModel, Speculator
 from repro_torch.core.trees import TreeCache
 from repro_torch.device import resolve_device
+from repro_torch.models import kvcache
 from repro_torch.models.model import Model
 from repro_torch.serving.request import (ConstraintSpec, DecodeParams,
                                          Request, packed_argmax,
@@ -49,8 +57,6 @@ from repro_torch.serving.session import GenerationResult
 from repro_torch.tokenizer import BPETokenizer
 
 DEFAULT_GRAMMAR = "default"
-SPECULATION_TODO = ("speculative decoding is not ported to repro_torch yet "
-                    "(ROADMAP Queue 1: speculation and _verify_row)")
 
 
 @dataclasses.dataclass
@@ -103,6 +109,7 @@ class ServingEngine:
                  grammar: Optional[Grammar] = None,
                  cfg: Optional[EngineConfig] = None,
                  tree_cache: Optional[TreeCache] = None,
+                 count_model: Optional[CountModel] = None,
                  max_len: int = 1024,
                  analysis_policy: str = "off",
                  max_adhoc_grammars: int = 32,
@@ -136,6 +143,12 @@ class ServingEngine:
         self.tree_cache = (self.registry[DEFAULT_GRAMMAR][1]
                            if grammar is not None and constrained_default
                            else None)
+        # speculation: ONE count model engine-wide (priors transfer across
+        # requests); Speculators pooled per (s, threshold) share the
+        # proposal-chain memo
+        self.count_model = count_model or CountModel()
+        self._speculators: Dict[Tuple[int, float], Speculator] = {}
+        self.speculator = self._speculator_for(self.default_decode)
         # engine-level rng for the legacy default policy
         self.rng = np.random.default_rng(self.cfg.seed)
         self._v = tok.vocab_size   # model logits may be vocab-padded
@@ -173,6 +186,25 @@ class ServingEngine:
         self.registry[name] = (grammar, tc)
         self._grammar_refs[name] = self._grammar_refs.get(name, 0) + 1
         return tc
+
+    def unregister_grammar(self, name: str) -> bool:
+        """Drop one reference to ``name``; at zero the entry (grammar,
+        TreeCache, mask memo, analysis report) is released.  Returns True
+        when the entry was fully removed."""
+        if name not in self.registry:
+            raise KeyError(f"grammar {name!r} is not registered")
+        n = self._grammar_refs.get(name, 1) - 1
+        if n > 0:
+            self._grammar_refs[name] = n
+            return False
+        self.registry.pop(name, None)
+        self._grammar_refs.pop(name, None)
+        self.analysis_reports.pop(name, None)
+        if name in self._adhoc_order:
+            self._adhoc_order.remove(name)
+        if self.tree_cache is not None and name == DEFAULT_GRAMMAR:
+            self.tree_cache = None
+        return True
 
     def resolve_grammar(self, ref) -> Tuple[Optional[Grammar],
                                             Optional[TreeCache]]:
@@ -215,6 +247,20 @@ class ServingEngine:
             self.analysis_reports.pop(victim, None)
         return self.registry[name]
 
+    def analyze_grammar(self, name: str, policy: Optional[str] = None,
+                        **kwargs) -> AnalysisReport:
+        """(Re-)run static analysis of a registered grammar against the
+        engine's vocabulary on the registry's shared TreeCache; ``kwargs``
+        pass through to :func:`repro_torch.core.analysis.analyze`.  The
+        report is stored and the policy enforced."""
+        grammar, tc = self.resolve_grammar(name)
+        report = analyze(grammar, list(self.tok.vocab), self.tok.eos_id,
+                         name=name, tree_cache=tc, **kwargs)
+        self.analysis_reports[name] = report
+        enforce(report, policy if policy is not None
+                else self.analysis_policy)
+        return report
+
     def precompute(self) -> Dict[str, float]:
         """Offline warm path: build every reachable subterminal tree of
         every registered grammar now, so serving never builds trees on the
@@ -249,11 +295,8 @@ class ServingEngine:
                        extra_inputs=extra_inputs)
 
     def _coerce(self, request: Union[str, Request]) -> Request:
-        req = (self.make_request(request) if isinstance(request, str)
-               else request)
-        if req.decode.speculative:
-            raise NotImplementedError(SPECULATION_TODO)
-        return req
+        return (self.make_request(request) if isinstance(request, str)
+                else request)
 
     def _eos_for(self, spec: ConstraintSpec) -> int:
         return spec.eos_id if spec.eos_id is not None else self.tok.eos_id
@@ -299,8 +342,22 @@ class ServingEngine:
                        checker=checker, budget=dp.max_tokens,
                        eos_id=self._eos_for(req.constraint), decode=dp,
                        opportunistic=req.constraint.opportunistic,
-                       speculator=None, request=req,
+                       speculator=self._speculator_for(dp), request=req,
                        extra_inputs=merged or None)
+
+    def _speculator_for(self, dp: DecodeParams) -> Optional[Speculator]:
+        # greedy-verified: a sampled row's proposals almost never match its
+        # draw, and each mismatch would burn an RNG draw whose count depends
+        # on the SHARED count model, so sampled rows decode plain
+        if not dp.speculative or dp.temperature > 0.0:
+            return None
+        key = (dp.spec_s, dp.spec_threshold)
+        sp = self._speculators.get(key)
+        if sp is None:
+            sp = Speculator(self.count_model, s=dp.spec_s,
+                            threshold=dp.spec_threshold)
+            self._speculators[key] = sp
+        return sp
 
     # -- sampling -----------------------------------------------------------------
 
@@ -388,6 +445,7 @@ class ServingEngine:
         policy = _RowPolicy(temperature=dp.temperature,
                             opportunistic=req.constraint.opportunistic,
                             decode=dp)
+        speculator = self._speculator_for(dp)
         prompt_ids, checker = self._prep(req)
         cache = self.model.init_cache(1, self.max_len, device=self.device)
         inputs = {"tokens": self._tokens([prompt_ids])}
@@ -395,8 +453,9 @@ class ServingEngine:
         inputs.update(extra_inputs or {})
 
         model_t = mask_t = 0.0
-        n_fwd = n_int = 0
+        n_fwd = n_int = n_prop = n_acc = 0
         out_ids: List[int] = []
+        snap = None       # pre-verify recurrent state, one buffer a call
 
         t0 = time.perf_counter()
         logits, cache = self._prefill(self.params, inputs, cache)
@@ -408,7 +467,8 @@ class ServingEngine:
         status: Optional[str] = None
         error: Optional[str] = None
         budget = dp.max_tokens
-        while budget > 0:
+        while budget > 0 and not finished and not dead_end \
+                and status is None:
             if dp.deadline_s is not None \
                     and time.perf_counter() - t_start > dp.deadline_s:
                 status = "deadline_exceeded"
@@ -418,6 +478,99 @@ class ServingEngine:
                 status = "internal_error"
                 error = "non-finite logits from device step"
                 break
+            # ---- speculative path: propose, verify in one forward ------------
+            if (speculator is not None and checker is not None
+                    and hasattr(checker, "clone")):
+                tok0, intervened, dt = self._pick(logits, checker,
+                                                  policy=policy)
+                mask_t += dt
+                if tok0 is None:
+                    dead_end = True
+                    break
+                n_int += intervened
+                if tok0 == eos_id:
+                    finished = True
+                    checker.advance(tok0)
+                    break
+                speculator.observe(checker.state_key(), tok0)
+                checker.advance(tok0)
+                out_ids.append(tok0)
+                budget -= 1
+                proposals = speculator.propose(checker)
+                n_prop += len(proposals)
+                feed = [tok0] + proposals
+                # a fixed verify width (spec_s + 1); pads are rolled back
+                n_pad = (1 + dp.spec_s) - len(feed)
+                feed_p = feed + [self.tok.pad_id] * n_pad
+                if self._needs_refeed:
+                    # the forward overwrites the recurrent state in place
+                    snap = kvcache.snapshot_state(cache, snap)
+                t0 = time.perf_counter()
+                lg_multi, cache = self._decode(self.params, cache,
+                                               self._tokens([feed_p]))
+                lg_multi = lg_multi[0, :, :self._v].float().cpu().numpy()
+                model_t += time.perf_counter() - t0
+                n_fwd += 1
+                accepted = 0
+                for i, prop in enumerate(proposals):
+                    if budget <= 0:
+                        break
+                    if not np.all(np.isfinite(lg_multi[i])):
+                        status = "internal_error"
+                        error = ("non-finite logits in speculative "
+                                 "verify window")
+                        break
+                    # a raw argmax equal to the proposal needs only an
+                    # O(token) legality check, not the full mask
+                    tok_i = None
+                    if dp.temperature <= 0.0 \
+                            and int(lg_multi[i].argmax()) == prop:
+                        t0 = time.perf_counter()
+                        ok = checker.check_token(prop)
+                        mask_t += time.perf_counter() - t0
+                        if ok:
+                            tok_i = prop
+                    if tok_i is None:
+                        tok_i, intervened, dt = self._pick(
+                            lg_multi[i], checker, policy=policy)
+                        mask_t += dt
+                        if tok_i is None:
+                            dead_end = True
+                            break
+                        n_int += intervened
+                    if tok_i != prop:
+                        break
+                    speculator.observe(checker.state_key(), tok_i)
+                    checker.advance(tok_i)
+                    accepted += 1
+                    if tok_i == eos_id:
+                        finished = True
+                        break
+                    out_ids.append(tok_i)
+                    budget -= 1
+                n_acc += accepted
+                rejected = len(proposals) - accepted
+                if rejected > 0 or n_pad > 0:
+                    if self._needs_refeed:
+                        # recompute from the pre-verify state at the exact
+                        # length: recurrent state cannot host pads
+                        t0 = time.perf_counter()
+                        cache = kvcache.restore_state(cache, snap)
+                        lg_re, cache = self._decode(
+                            self.params, cache,
+                            self._tokens([feed[:1 + accepted]]))
+                        logits = self._host_logits(lg_re)
+                        model_t += time.perf_counter() - t0
+                        n_fwd += 1
+                    else:
+                        cache = self.model.rollback(cache,
+                                                    rejected + n_pad)
+                        logits = lg_multi[accepted]
+                else:
+                    logits = lg_multi[len(proposals)]
+                continue
+
+            # ---- plain path --------------------------------------------------
             tok, intervened, dt = self._pick(logits, checker, policy=policy)
             mask_t += dt
             if tok is None:
@@ -446,8 +599,8 @@ class ServingEngine:
             n_forward_passes=n_fwd,
             n_tokens=len(out_ids),
             n_interventions=n_int,
-            n_spec_proposed=0,
-            n_spec_accepted=0,
+            n_spec_proposed=n_prop,
+            n_spec_accepted=n_acc,
             mask_time_s=mask_t,
             model_time_s=model_t,
             wall_time_s=time.perf_counter() - t_start,
@@ -486,3 +639,58 @@ class ServingEngine:
         sched.run()
         self.last_batch_stats = sched.stats()
         return [s.result for s in sessions]
+
+    # -- template mode ------------------------------------------------------------
+
+    def generate_template(self, prompt: str, parts) -> GenerationResult:
+        """GUIDANCE-style template execution (the baseline of the paper's
+        Fig. 2 / Table 2): fixed parts are forced as one multi-token
+        forward each, generated parts select under their slot's mask."""
+        t_start = time.perf_counter()
+        session = TemplateSession(parts, list(self.tok.vocab),
+                                  self.tok.eos_id, self.tok.encode_greedy)
+        prompt_ids = self.tok.encode(prompt) or [self.tok.bos_id]
+        cache = self.model.init_cache(1, self.max_len, device=self.device)
+        t0 = time.perf_counter()
+        logits, cache = self._prefill(
+            self.params, {"tokens": self._tokens([prompt_ids])}, cache)
+        logits = self._host_logits(logits)
+        model_t = time.perf_counter() - t0
+        n_fwd = 1
+        out_ids: List[int] = []
+        budget = self.cfg.max_tokens
+        while budget > 0:
+            action, payload = session.next_action()
+            if action == "done":
+                break
+            if action == "force":
+                if not payload:
+                    continue
+                out_ids.extend(payload)
+                budget -= len(payload)
+                t0 = time.perf_counter()
+                lg, cache = self._decode(self.params, cache,
+                                         self._tokens([payload]))
+                logits = self._host_logits(lg)
+                model_t += time.perf_counter() - t0
+                n_fwd += 1
+                continue
+            tok = self._select(logits, payload)      # under the slot mask
+            session.feed(tok)
+            if tok == self.tok.eos_id:
+                continue          # the slot ended; EOS is not emitted
+            out_ids.append(tok)
+            budget -= 1
+            t0 = time.perf_counter()
+            lg, cache = self._decode(self.params, cache,
+                                     self._tokens([[tok]]))
+            logits = self._host_logits(lg)
+            model_t += time.perf_counter() - t0
+            n_fwd += 1
+        return GenerationResult(
+            text=self.tok.decode(out_ids), token_ids=out_ids,
+            n_forward_passes=n_fwd, n_tokens=len(out_ids),
+            n_interventions=session.forced_tokens,
+            n_spec_proposed=0, n_spec_accepted=0,
+            mask_time_s=0.0, model_time_s=model_t,
+            wall_time_s=time.perf_counter() - t_start, finished=True)

@@ -29,12 +29,20 @@ Per tick:
  - rows that hit their EOS or budget finish; rows the pool cannot grow
    are recompute-preempted (pages returned, re-prefilled later with prompt
    plus generated prefix; the checker state rides along, so outputs are
-   unchanged).
+   unchanged);
+ - speculative decoding (paper section 3.6) runs per row: one (B, 1+s)
+   verify forward scores every row's proposal chain (rows with shorter
+   chains or none ride along on pad positions), each row accepts its
+   longest verified prefix, and full-attention rows roll back by rewinding
+   their own ``len`` (pages wholly beyond it return to the pool at once)
+   while recurrent rows are refed from a copy of their state taken before
+   the verify forward -- grouped by accepted length, so each group is one
+   B=K gather, decode and scatter.
 
 Per-request outputs match ``ServingEngine.generate`` token for token.
-Not ported yet (ROADMAP Queue 1): speculative verify (``_spec_step``,
-``_verify_row``), deadlines, cancellation and fault injection, the
-device-resident loop, the journal, the supervisor and the prefix cache.
+Not ported yet (ROADMAP Queue 1): deadlines, cancellation and fault
+injection, the device-resident loop, the journal, the supervisor and the
+prefix cache.
 """
 from __future__ import annotations
 
@@ -104,19 +112,6 @@ class PagePool:
 # These write in place and return ``dst``.
 
 
-def _scatter_row(dst, src, slot: int):
-    """Write a B=1 row cache ``src`` into row ``slot`` of a dense batch
-    cache: every leaf, K/V stripes and SSM conv/ssm states alike."""
-    dst["len"][slot] = src["len"]
-    for dc, sc in zip(dst["head"] + dst["tail"], src["head"] + src["tail"]):
-        for name in dc:
-            dc[name][slot] = sc[name][0]
-    for key, dc in dst["group"].items():
-        for name in dc:
-            dc[name][:, slot] = src["group"][key][name][:, 0]
-    return dst
-
-
 def _scatter_row_paged(dst, src, slot: int, page_ids: torch.Tensor,
                        page_size: int):
     """Write a dense B=1 row cache ``src`` into the pool pages ``page_ids``
@@ -137,6 +132,35 @@ def _scatter_row_paged(dst, src, slot: int, page_ids: torch.Tensor,
             s = src["group"][key][name]          # (reps, 1, T, ...)
             dc[name][:, page_ids] = s[:, 0, :n_pg * page_size].reshape(
                 (s.shape[0], n_pg, page_size) + tuple(s.shape[3:]))
+    return dst
+
+
+def _gather_rows(src, idx: torch.Tensor):
+    """Rows ``idx`` ((K,) int64) of a dense batch cache as a new B=K cache
+    (``len`` stays a vector, so the refeed decode takes the ragged
+    write)."""
+    return {
+        "len": src["len"].index_select(0, idx),
+        "head": [{n: a.index_select(0, idx) for n, a in c.items()}
+                 for c in src["head"]],
+        "tail": [{n: a.index_select(0, idx) for n, a in c.items()}
+                 for c in src["tail"]],
+        "group": {k: {n: a.index_select(1, idx) for n, a in c.items()}
+                  for k, c in src["group"].items()},
+    }
+
+
+def _scatter_rows(dst, src, idx: torch.Tensor):
+    """Write a B=K cache ``src`` into rows ``idx`` ((K,) int64) of a dense
+    batch cache ``dst``, in place: every leaf, K/V stripes and SSM
+    conv/ssm states alike (an admitted B=1 row, or a refeed's rows)."""
+    dst["len"][idx] = src["len"]
+    for dc, sc in zip(dst["head"] + dst["tail"], src["head"] + src["tail"]):
+        for name in dc:
+            dc[name][idx] = sc[name]
+    for key, dc in dst["group"].items():
+        for name in dc:
+            dc[name][:, idx] = src["group"][key][name]
     return dst
 
 
@@ -225,6 +249,9 @@ class ContinuousBatchingScheduler:
         self.n_decode = 0              # batched decode forwards
         self.n_preempt = 0             # paged recompute preemptions
         self.n_host_syncs = 0          # per-tick selection readbacks
+        # pre-verify recurrent state of every row, allocated on the first
+        # speculative tick of a refeed architecture and reused after
+        self._snap = None
         self._next_rid = 0
         self.finished: List[Session] = []
         self._finished_now: List[Session] = []
@@ -267,10 +294,22 @@ class ContinuousBatchingScheduler:
         sessions that reached a terminal status since the last drain."""
         self._admit()
         if any(s is not None for s in self.slots):
-            self._plain_step()
+            width = self._verify_width()
+            if width > 1:
+                self._spec_step(width)
+            else:
+                self._plain_step()
         self._reset_vacant_lens()
         done, self._finished_now = self._finished_now, []
         return done
+
+    def _verify_width(self) -> int:
+        """Verify width of this tick: 1 + the widest resident speculative
+        row's ``spec_s`` (plain rows ride along on pad positions); 1 means
+        no resident row speculates and the tick takes the plain path."""
+        widths = [1 + s.decode.spec_s for s in self.slots
+                  if s is not None and s.speculator is not None]
+        return max(widths) if widths else 1
 
     # -- admission / eviction ---------------------------------------------------
 
@@ -343,7 +382,8 @@ class ContinuousBatchingScheduler:
                     self._n_pages_row[slot] = len(page_ids)
                     self._pages_dirty = True
                 else:
-                    _scatter_row(self.cache, row_cache, slot)
+                    _scatter_rows(self.cache, row_cache,
+                                  torch.tensor([slot], device=self.dev))
             except Exception as e:   # quarantined: reject THIS request
                 if self.paged and page_ids:
                     self.pool.free(page_ids)
@@ -442,6 +482,24 @@ class ContinuousBatchingScheduler:
             self._page_tbl[slot, have:want] = self.pool.alloc(want - have)
             self._n_pages_row[slot] = want
             self._pages_dirty = True
+
+    def _shrink_pages(self) -> None:
+        """Speculative rollback rewound per-row frontiers; pages wholly
+        beyond a row's new length hold only rejected garbage and go back
+        to the pool (the next ``_ensure_pages`` allocates on demand)."""
+        if not self.paged:
+            return
+        lens = self.cache["len"].cpu().numpy()
+        for slot, sess in enumerate(self.slots):
+            if sess is None:
+                continue
+            keep = _ceil_div(int(lens[slot]), self.page_size)
+            n = int(self._n_pages_row[slot])
+            if n > keep:
+                self.pool.free(self._page_tbl[slot, keep:n].tolist())
+                self._page_tbl[slot, keep:n] = 0
+                self._n_pages_row[slot] = keep
+                self._pages_dirty = True
 
     def _sync_pages(self) -> None:
         """Upload the host block table if the allocator moved pages."""
@@ -599,6 +657,9 @@ class ContinuousBatchingScheduler:
                     sess.finished_eos = True
                     self._finish(sess)
                     continue
+                if ch is not None and sess.speculator is not None \
+                        and hasattr(ch, "clone"):
+                    sess.speculator.observe(ch.state_key(), tok)
                 if ch is not None:
                     ch.advance(tok)
                     self._premask.pop(slot, None)  # state moved: stale
@@ -653,3 +714,183 @@ class ContinuousBatchingScheduler:
         lg = self._run_decode(torch.tensor(feed, dtype=torch.int64,
                                            device=self.dev))
         self._logits = lg[:, -1].to(torch.float32)
+
+    # -- speculative decode tick (paper section 3.6) ------------------------------
+
+    def _spec_step(self, width: int) -> None:
+        """One speculative tick.  ``width`` is 1 + the widest resident
+        row's ``spec_s``: rows with shorter chains, or no speculator, ride
+        along on pad positions."""
+        eng = self.eng
+        pad = eng.tok.pad_id
+        # reserve the whole verify window first: growing mid-tick could
+        # preempt a row whose token was already committed into the feed
+        self._ensure_pages(width)
+        live = self._commit_first(self._choose())
+        if not any(s is not None for s in self.slots):
+            return
+        proposals: Dict[int, List[int]] = {}
+        for slot, tok in live.items():
+            sess = self.slots[slot]
+            ch = sess.checker
+            props = []
+            if ch is not None and sess.speculator is not None \
+                    and hasattr(ch, "clone"):
+                props = sess.speculator.propose(ch)
+            sess.n_prop += len(props)
+            proposals[slot] = props
+        if all(len(p) == 0 for p in proposals.values()):
+            # nothing to verify anywhere: a plain-width forward
+            feed = [[pad]] * self.capacity
+            for slot, tok in live.items():
+                feed[slot] = [tok]
+            lg = self._run_decode(torch.tensor(feed, dtype=torch.int64,
+                                               device=self.dev))
+            self._logits = lg[:, -1].to(torch.float32)
+            self._shrink_pages()       # return the unused verify window
+            return
+        feed = [[pad] * width for _ in range(self.capacity)]
+        for slot, tok in live.items():
+            row = [tok] + proposals[slot]
+            feed[slot][:len(row)] = row
+        # the forward writes the cache in place: a refeed needs the
+        # recurrent state as it stands now, copied
+        snapshot = None
+        if eng._needs_refeed:
+            snapshot = self._snap = kvcache.snapshot_state(self.cache,
+                                                           self._snap)
+        snap_len = self.cache["len"].clone()
+        # the overlapped prebuild sees the post-commit checker state, the
+        # one verification position 0 selects from
+        lg_dev = self._run_decode(torch.tensor(feed, dtype=torch.int64,
+                                               device=self.dev))
+        lg_host = lg_dev[:, :, :eng._v].float().cpu().numpy()
+        # rows not in `live` consumed the whole pad width; "accepting" it
+        # keeps their (garbage, overwritten at admission) length
+        # consistent with the decoded cache
+        accepted_vec = np.full(self.capacity, width - 1, np.int64)
+        for slot, props in proposals.items():
+            try:
+                accepted_vec[slot] = self._verify_row(slot, props,
+                                                      lg_host[slot])
+            except Exception as e:   # quarantined: evict THIS row only
+                accepted_vec[slot] = 0
+                if self.slots[slot] is not None:
+                    self._fail(self.slots[slot],
+                               f"checker failed during speculative "
+                               f"verify: {e!r}")
+        if eng._needs_refeed:
+            self._fixup_refeed(snapshot, live, proposals, accepted_vec,
+                               lg_dev, width)
+            return
+        # per-row rollback: entries beyond `len` are masked, so rewinding
+        # each row's length is the whole rollback
+        acc = torch.tensor(accepted_vec, device=self.dev)
+        self.cache["len"] = snap_len + 1 + acc.to(torch.int32)
+        self._logits = lg_dev[torch.arange(self.capacity, device=self.dev),
+                              acc].to(torch.float32)
+        self._shrink_pages()
+
+    def _verify_row(self, slot: int, props: List[int],
+                    lg_row: np.ndarray) -> int:
+        """Greedy verification of one row, as on the single-request path:
+        accept the longest prefix whose proposals equal the (masked)
+        selection at each position, under the row's own policy."""
+        eng = self.eng
+        sess = self.slots[slot]
+        ch = sess.checker
+        greedy = sess.temperature <= 0.0
+        accepted = 0
+        for i, prop in enumerate(props):
+            if sess.budget <= 0:
+                break
+            if not np.all(np.isfinite(lg_row[i])):
+                # surfaces as internal_error through the caller
+                raise RuntimeError(
+                    "non-finite logits in speculative verify window")
+            tok_i = None
+            if greedy and int(lg_row[i].argmax()) == prop:
+                t0 = time.perf_counter()
+                ok = ch.check_token(prop)
+                sess.mask_time += time.perf_counter() - t0
+                if ok:
+                    tok_i = prop
+            if tok_i is None:
+                # a full mask was needed here: worth prebuilding next tick
+                # under opportunistic mode
+                self._opp_intervened[slot] = True
+                # position 0 selects from the state the overlapped prebuild
+                # saw; later positions advanced past it
+                pre = self._premask.pop(slot, None) if i == 0 else None
+                # an opportunistic pick may take the raw argmax without
+                # reading the premask: no hit is counted then
+                if not (sess.opportunistic and greedy):
+                    self.premask_hits += int(pre is not None)
+                hits0 = getattr(ch, "n_mask_memo_hits", 0)
+                tok_i, intervened, mask_dt = eng._pick(lg_row[i], ch,
+                                                       premask=pre,
+                                                       policy=sess)
+                self.mask_cache_hits += \
+                    getattr(ch, "n_mask_memo_hits", 0) - hits0
+                sess.mask_time += mask_dt
+                if tok_i is None:          # dead end mid-verification
+                    sess.dead_end = True
+                    break
+                sess.n_int += intervened
+            if tok_i != prop:
+                break
+            sess.speculator.observe(ch.state_key(), tok_i)
+            ch.advance(tok_i)
+            self._premask.pop(slot, None)   # state moved: mask stale
+            accepted += 1
+            if tok_i == sess.eos_id:
+                sess.finished_eos = True
+                break
+            sess.out_ids.append(tok_i)
+            sess.budget -= 1
+        sess.n_acc += accepted
+        if sess.finished_eos or sess.dead_end or sess.budget <= 0:
+            self._finish(sess)
+        return accepted
+
+    def _fixup_refeed(self, snapshot, live, proposals, accepted_vec,
+                      lg_dev, width: int) -> None:
+        """Recurrent rows cannot rewind their state: re-feed each partially
+        accepted row's committed tokens from the pre-verify ``snapshot``.
+        Rows are grouped by accepted length, so each group is ONE B=K
+        gather, decode and scatter."""
+        eng = self.eng
+        groups: Dict[int, List[int]] = {}
+        committed: Dict[int, List[int]] = {}
+        for slot, tok in live.items():
+            sess = self.slots[slot]
+            if sess is None:
+                # finished during verification: the row is overwritten at
+                # the next admission
+                continue
+            a = int(accepted_vec[slot])
+            props = proposals[slot]
+            if a == len(props) and len(props) == width - 1:
+                # full accept, no pads: the verified row state is exact
+                self._logits[slot] = lg_dev[slot, -1].to(torch.float32)
+                continue
+            groups.setdefault(a, []).append(slot)
+            committed[slot] = [tok] + props[:a]
+        for a, slots in groups.items():
+            idx = torch.tensor(slots, dtype=torch.int64, device=self.dev)
+            feed = torch.tensor([committed[s] for s in slots],
+                                dtype=torch.int64, device=self.dev)
+            t0 = time.perf_counter()
+            rows = _gather_rows(snapshot, idx)
+            lg_re, rows = eng._decode(eng.params, rows, feed)
+            _scatter_rows(self.cache, rows, idx)
+            self._logits[idx] = lg_re[:, -1].to(torch.float32)
+            # wait, so model_time measures execution, not dispatch
+            if lg_re.is_cuda:
+                torch.cuda.synchronize(lg_re.device)
+            dt = time.perf_counter() - t0
+            self.n_fwd += 1
+            for slot in slots:
+                sess = self.slots[slot]
+                sess.n_fwd += 1
+                sess.model_time += dt

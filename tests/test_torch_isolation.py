@@ -26,8 +26,11 @@ PORT = SRC / "repro_torch"
 COPIED = (sorted(p.relative_to(SRC / "repro")
                  for d in ("core", "tokenizer", "configs")
                  for p in (SRC / "repro" / d).glob("*.py"))
-          + [pathlib.Path("serving/request.py"),
-             pathlib.Path("serving/session.py")])
+          + [pathlib.Path(p) for p in ("serving/request.py",
+                                       "serving/session.py",
+                                       "analysis/__init__.py",
+                                       "analysis/cli.py",
+                                       "analysis/report.py", "analyze.py")])
 IMPORT_RE = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|repro)(\.|\s|$)")
 
 

@@ -120,14 +120,20 @@ def test_mixed_domino_and_unconstrained_rows_match(engines):
           teng.generate_batch(treqs, max_batch=3))
 
 
-def test_speculative_requests_are_refused(engines):
-    _, teng = engines[False]
-    req = TRequest("a: ", TConstraintSpec(grammar="json", mode="domino"),
-                   TDecodeParams(speculative=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        teng.generate(req)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        teng.generate_batch([req])
+def test_speculative_requests_are_served(engines):
+    """The speculative request is served on both paths, equal to the JAX
+    engine's result, proposals and acceptances included."""
+    eng, teng = engines[False]
+    req = Request("a: ", ConstraintSpec(grammar="json", mode="domino"),
+                  DecodeParams(speculative=True))
+    treq = TRequest("a: ", TConstraintSpec(grammar="json", mode="domino"),
+                    TDecodeParams(speculative=True))
+    for ref, got in (([eng.generate(req)], [teng.generate(treq)]),
+                     (eng.generate_batch([req]),
+                      teng.generate_batch([treq]))):
+        _same(ref, got)
+        assert [(g.n_spec_proposed, g.n_spec_accepted) for g in got] == \
+            [(r.n_spec_proposed, r.n_spec_accepted) for r in ref]
 
 
 def test_engine_defaults_to_the_card(engines, small_tokenizer):
