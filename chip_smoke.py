@@ -83,7 +83,24 @@ non-zero without the final result line):
     inputs a serving path gave it; for #1 (paged and contiguous), #1b, #4
     and #5 also on a mid-run verify call (S = 1 + spec_s) of the bf16
     speculative runs, with that run's launches and the card's name and
-    power limit (``verify``, ``verify_contiguous``).
+    power limit (``verify``, ``verify_contiguous``);
+ 8. failure semantics and durability at full width in float32, every
+    comparison bitwise, every run's launches checked as in phase 5: (a)
+    stablelm-1.6b, 6 JSON requests of 32 tokens in 4 slots over a pool of
+    64-token pages with one spare page, so the fault-free run preempts;
+    then a seeded storm (mask_error, decode_nan, advance_error,
+    prefill_nan, page_exhaustion) under the tick invariant audit
+    (affected rows non-ok with a prefix of the fault-free output, or
+    equal; the others equal; the pool and slots drained), a device_error
+    storm (two engine resets, the ladder down to the plain masked argmax
+    and back to level 0, peak memory against the fault-free run's), an
+    alloc_fail shrink, and a cancellation beside an expired deadline;
+    (c) a journaled run crashed after its 6th fsync and restored in
+    process, then the serve CLI's SIGKILL drill (reference, crash and
+    restore processes, ``IDS`` lines equal); (b) zamba2-1.2b speculative
+    on dense rows with a targeted advance_error, a targeted decode_nan
+    and a device_error reset.  A fault-free run that degrades, retries,
+    resets or selects through the plain version fails.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -1882,6 +1899,390 @@ def phase_kernels(torch, card, paths, scans, attn_long, split_long,
     return out
 
 
+# -- phase 8 --------------------------------------------------------------------
+
+
+# long enough (56-62 tokens) that a row outgrows its first 64-token page a
+# few tokens into its output: with one spare page in the pool, the
+# fault-free run recompute-preempts
+FAULT_PROMPTS = ["The results of the last three runs, as a JSON list of "
+                 "numbers: ",
+                 "The service configuration as one JSON object of settings: ",
+                 "One data record of the survey, written as a JSON object: ",
+                 "A JSON array of the measured values, one number for each "
+                 "day: ",
+                 "An inventory item as a JSON object with its name and "
+                 "price: ",
+                 "The settings of the test machine, as one JSON object: "]
+N_FAULT_REQUESTS = 6
+STORM = {"mask_error": 0.08, "decode_nan": 0.08, "advance_error": 0.08,
+         "prefill_nan": 0.05, "page_exhaustion": 0.25}
+ROW_SITES = ("mask_error", "decode_nan", "advance_error", "prefill_nan")
+# the SIGKILL drill: three runs of the serve CLI (reference, crashed after
+# its K-th journal fsync, restored); ``--no-smoke`` serves the published
+# width
+DRILL_CRASH_AFTER = 6
+DRILL_ARGS = ["--arch", "stablelm-1.6b", "--no-smoke", "--kernels",
+              "--dtype", "float32", "--prompts", "4", "--slots", "4",
+              "--max-tokens", "32", "--print-ids"]
+
+
+class CrashHook(Exception):
+    """Raised by the journal's crash hook in place of SIGKILL: the file is
+    left as a kill just after that fsync would leave it."""
+
+
+def _crash_hook():
+    raise CrashHook()
+
+
+def phase_faults(torch, card, shared):
+    """Failure semantics and durability at full width in float32 (every
+    comparison bitwise): (a) stablelm-1.6b over a paged pool that preempts,
+    fault-free, then a seeded storm under the invariant audit, a
+    ``device_error`` storm down the degradation ladder and back, an
+    ``alloc_fail`` shrink, and a cancellation beside an expired deadline;
+    (b) zamba2-1.2b speculative on dense rows, with a targeted
+    ``advance_error``, a targeted ``decode_nan`` and a ``device_error``
+    reset; (c) a journaled stablelm run crashed after its 6th fsync and
+    restored, then the serve CLI's SIGKILL drill in three processes.
+    Every run's counters are set to 0 just before it and checked by
+    ``check_launches`` just after."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import (ConstraintSpec, DecodeParams,
+                                     DegradationSupervisor, FaultInjector,
+                                     Request, ServingEngine, TokenJournal)
+    from repro_torch.serving.scheduler import ContinuousBatchingScheduler
+
+    tok = shared["tok"]
+
+    def build(arch):
+        cfg = dataclasses.replace(get_config(arch), dtype="float32",
+                                  use_pallas_kernels=True)
+        model = build_model(cfg)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        params = model.init(gen, device="cuda")
+        return cfg, model, params
+
+    def engine(model, params):
+        eng = ServingEngine(model, params, tok, max_len=MAX_LEN,
+                            device="cuda")
+        for name, g in (("json", shared["grammar"]),
+                        ("gsm8k", shared["gsm8k"])):
+            eng.register_grammar(name, g, tree_cache=shared["trees"][name])
+        return eng
+
+    def run(eng, cfg, reqs, what, inj=None, sup=None, drive=None, **kw):
+        """One scheduler run with every counter set to 0 just before it;
+        its launches checked against its forwards.  ``drive(sched,
+        sessions)`` steps it before ``run()``.  Returns (results,
+        scheduler, injector, stats line)."""
+        with ForwardCount(eng) as fwd:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.memory_allocated()
+            reset_counts()
+            t0 = time.perf_counter()
+            sched = ContinuousBatchingScheduler(
+                eng, fault_injector=inj, supervisor=sup, **kw)
+            sess = [sched.submit(r) for r in reqs]
+            if drive is not None:
+                drive(sched, sess)
+            # sched.run(), counting kernel #2's launches in the ticks that
+            # begin at the ladder's dense level (2)
+            dense = 0
+            while sched.waiting or any(s is not None for s in sched.slots):
+                level = sched.sup.level
+                n = read_counts()["masked_argmax_packed"]
+                sched.step()
+                if level >= 2:
+                    dense += read_counts()["masked_argmax_packed"] - n
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+        st = sched.stats()
+        if st["n_fwd"] != fwd.prefill + fwd.n_decode:
+            raise AssertionError(f"{what}: forwards {fwd.prefill} prefills "
+                                 f"+ {fwd.decode} decodes, scheduler {st}")
+        check_launches(cfg, counts, fwd, what)
+        # the peak above what was allocated when the run began (the weights,
+        # and a caller's earlier scheduler still held)
+        peak = torch.cuda.max_memory_allocated() - start
+        line = (f"{wall:.1f}s on {card}; statuses "
+                f"{dict(sched.status_counts)}; {st['n_decode']} decode "
+                f"ticks, {fwd.prefill} prefills, {st['n_preempt']} "
+                f"preemptions; resets {st['n_engine_resets']}, ladder "
+                f"level {st['level']} ({st['n_degrades']} down, "
+                f"{st['n_recovers']} up, {st['n_retries']} retries), "
+                f"kernel #2 launches at the dense level {dense}; peak "
+                f"{peak / 1e6:.1f} MB "
+                f"above the run's start; launches "
+                + ", ".join(f"{k} {counts[k]}" for k in path_kernels(cfg)))
+        log(f"[faults] {what}: {line}")
+        return [s.result for s in sess], sched, inj, dict(
+            st, dense=dense, peak=peak, wall=wall)
+
+    def clean(res, st, what):
+        """A fault-free run: every request ends ok or dead_end, with no
+        degrade, retry or reset."""
+        bad = [(i, r.status) for i, r in enumerate(res)
+               if r.status not in ("ok", "dead_end")]
+        if bad or st["n_degrades"] or st["n_retries"] \
+                or st["n_engine_resets"]:
+            raise AssertionError(f"{what} is not clean: {bad}, {st}")
+
+    def same(got, want, what, rows=None):
+        for i in (range(len(want)) if rows is None else rows):
+            if (got[i].status, got[i].token_ids) != \
+                    (want[i].status, want[i].token_ids):
+                raise AssertionError(
+                    f"{what}: request {i} {got[i].status} "
+                    f"{got[i].token_ids} != fault-free {want[i].status} "
+                    f"{want[i].token_ids}")
+
+    def drained(sched, what):
+        if any(s is not None for s in sched.slots) or sched.waiting or (
+                sched.paged and (sched.pool.available != sched.n_pages - 1
+                                 or sched._page_tbl.any())):
+            raise AssertionError(f"{what}: slots, queue or pool not drained")
+
+    # (a) stablelm-1.6b at full width over a pool that preempts
+    cfg, model, params = build("stablelm-1.6b")
+    eng = engine(model, params)
+    reqs = [Request(FAULT_PROMPTS[i % len(FAULT_PROMPTS)],
+                    ConstraintSpec(grammar="json", mode="domino"),
+                    DecodeParams(max_tokens=MAX_TOKENS, seed=i))
+            for i in range(N_FAULT_REQUESTS)]
+    n_pages = 1 + N_REQUESTS + 1       # the trash page, 4 rows, one spare
+    pool = dict(capacity=N_REQUESTS, paged=True, page_size=PAGE_SIZE,
+                n_pages=n_pages)
+    log(f"[faults] (a) {describe(cfg)}, float32; {N_FAULT_REQUESTS} JSON "
+        f"requests of {MAX_TOKENS} tokens (prompts of "
+        f"{[len(tok.encode(r.prompt)) for r in reqs]} tokens) in "
+        f"{N_REQUESTS} slots, a pool of n_pages={n_pages} "
+        f"{PAGE_SIZE}-token pages")
+    base, sched, _, st0 = run(eng, cfg, reqs, "(a) fault-free", **pool)
+    clean(base, st0, "(a) fault-free run")
+    if st0["n_preempt"] < 1:
+        raise AssertionError("(a) the fault-free run did not preempt")
+
+    inj = FaultInjector(seed=0, rates=STORM, max_faults=25)
+    res, sched, inj, _ = run(eng, cfg, reqs, "(a) storm", inj=inj,
+                             debug_invariants=True, **pool)
+    sites = sorted({r.site for r in inj.log})
+    affected = inj.faulted_rids(*ROW_SITES)
+    log(f"[faults] (a) storm fired {len(inj.log)} faults at {sites} on "
+        f"rids {sorted(affected)}: "
+        + ", ".join(f"{r.site}@{r.tick}/{r.rid}" for r in inj.log))
+    if len(sites) < 3:
+        raise AssertionError(f"(a) the storm touched {sites} only")
+    drained(sched, "(a) storm")
+    for i, (r, b) in enumerate(zip(res, base)):
+        if i in affected:
+            if not ((r.status != "ok" and r.error)
+                    or r.token_ids == b.token_ids) \
+                    or r.token_ids != b.token_ids[:r.n_tokens]:
+                raise AssertionError(f"(a) storm: affected request {i} "
+                                     f"{r.status} {r.token_ids} against "
+                                     f"{b.token_ids}")
+        else:
+            same(res, base, "(a) storm", rows=[i])
+
+    # one retry a guard: four faults are two failed readbacks, two resets
+    # and the ladder down to level 2; four clean ticks climb one level
+    sup = DegradationSupervisor(max_retries=1, backoff_s=0.0,
+                                recover_after=4)
+    res, sched, inj, st = run(
+        eng, cfg, reqs, "(a) device_error",
+        inj=FaultInjector(seed=2, rates={"device_error": 1.0},
+                          max_faults=4), sup=sup, debug_invariants=True,
+        **pool)
+    log("[faults] (a) device_error ladder: " + ", ".join(
+        f"{e.kind}->{e.level} ({e.what})" for e in sup.events)
+        + f"; final level {sup.level}; peak {st['peak'] / 1e6:.1f} MB "
+        f"above the run's start against the fault-free run's "
+        f"{st0['peak'] / 1e6:.1f} MB; wall {st['wall']:.1f}s against "
+        f"{st0['wall']:.1f}s")
+    same(res, base, "(a) device_error")
+    if st["n_engine_resets"] < 1 or sup.level != 0 \
+            or sup.n_degrades != 2 or st["dense"] < 1:
+        raise AssertionError(f"(a) device_error: {st}")
+    drained(sched, "(a) device_error")
+
+    res, sched, inj, st = run(
+        eng, cfg, reqs, "(a) alloc_fail",
+        inj=FaultInjector(seed=5, rates={"alloc_fail": 1.0},
+                          max_faults=2), debug_invariants=True, **pool)
+    same(res, base, "(a) alloc_fail")
+    if st["n_capacity_shrinks"] < 1:
+        raise AssertionError("(a) alloc_fail shrank nothing")
+    log(f"[faults] (a) alloc_fail: {st['n_capacity_shrinks']} capacity "
+        f"shrinks, cap_eff back to {st['cap_eff']}")
+
+    # the longest fault-free request (it cannot end in two ticks) is
+    # cancelled after two ticks; request 0 carries an expired deadline
+    victim = max(range(1, N_FAULT_REQUESTS), key=lambda i: base[i].n_tokens)
+
+    def cancel_victim(sched, sess):
+        sched.step()
+        sched.step()
+        if not sched.cancel(sess[victim].rid):
+            raise AssertionError(f"(a) request {victim} ended before its "
+                                 "cancel")
+
+    late = list(reqs)
+    late[0] = dataclasses.replace(
+        reqs[0], decode=dataclasses.replace(reqs[0].decode, deadline_s=0.0))
+    res, sched, _, _ = run(eng, cfg, late, "(a) cancel and deadline",
+                           drive=cancel_victim, debug_invariants=True,
+                           **pool)
+    if (res[victim].status, res[0].status) != ("cancelled",
+                                               "deadline_exceeded"):
+        raise AssertionError(f"(a) cancel/deadline: {res[victim].status}, "
+                             f"{res[0].status}")
+    same(res, base, "(a) cancel and deadline",
+         rows=[i for i in range(1, N_FAULT_REQUESTS) if i != victim])
+    drained(sched, "(a) cancel and deadline")
+
+    # (c) durability on the same engine: a journaled run crashed after its
+    # 6th fsync, restored in this process
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(pathlib.Path(tmp) / "journal")
+        journal = TokenJournal(path, crash_after_syncs=6,
+                               crash_hook=_crash_hook)
+        sched = ContinuousBatchingScheduler(eng, journal=journal, **pool)
+        for r in reqs:
+            sched.submit(r)
+        try:
+            sched.run()
+            raise AssertionError("(c) the journaled run did not crash")
+        except CrashHook:
+            journal.dead = True        # the process is gone
+        with ForwardCount(eng) as fwd:
+            reset_counts()
+            t0 = time.perf_counter()
+            sched = eng.restore(path, debug_invariants=True, **pool)
+            n_live = len(sched.waiting)
+            got = sched.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+        check_launches(cfg, counts, fwd, "(c) restore")
+    same(got, base, "(c) restore")
+    if sched.n_replayed_tokens < 1:
+        raise AssertionError("(c) restore replayed no token")
+    log(f"[faults] (c) crash after 6 fsyncs, restore: {n_live} of "
+        f"{len(got)} requests resumed live, {sched.n_replayed_tokens} "
+        f"tokens replayed, ids bitwise equal to the uninterrupted run; "
+        f"{wall:.1f}s on {card}; launches "
+        + ", ".join(f"{k} {counts[k]}" for k in path_kernels(cfg)))
+    del eng, model, params, sched
+    torch.cuda.empty_cache()
+
+    # (c) the serve CLI's SIGKILL drill, three processes
+    t0 = time.perf_counter()
+    drill = _sigkill_drill()
+    log(f"[faults] (c) SIGKILL drill ({' '.join(DRILL_ARGS)}): the crashed "
+        f"run died by SIGKILL after {DRILL_CRASH_AFTER} fsyncs; "
+        f"{drill} requests restored with IDS lines equal to the reference "
+        f"run's; three processes in {time.perf_counter() - t0:.1f}s on "
+        f"{card}")
+
+    # (b) zamba2-1.2b, speculative on dense rows of recurrent state
+    cfg, model, params = build("zamba2-1.2b")
+    spec_reqs = [Request(SPEC_PROMPTS[i % len(SPEC_PROMPTS)],
+                         ConstraintSpec(grammar="gsm8k", mode="domino"),
+                         DecodeParams(max_tokens=MAX_TOKENS, seed=i, **SPEC))
+                 for i in range(N_REQUESTS)]
+    log(f"[faults] (b) {describe(cfg)}, float32, speculative (spec_s "
+        f"{SPEC['spec_s']}, json_gsm8k), {N_REQUESTS} requests in "
+        f"{N_REQUESTS} slots on dense rows")
+
+    def spec_engine():
+        # a fresh count model a run, warmed by the same call, so every run
+        # starts from the same proposals
+        e = engine(model, params)
+        e.generate(spec_reqs[0])
+        return e
+
+    dense = dict(capacity=N_REQUESTS)
+    sbase, _, _, st = run(spec_engine(), cfg, spec_reqs, "(b) fault-free",
+                          **dense)
+    clean(sbase, st, "(b) fault-free run")
+    # the two longest fault-free requests take the targeted faults
+    longest = sorted(range(N_REQUESTS), key=lambda i: -sbase[i].n_tokens)
+    for site, rid in zip(("advance_error", "decode_nan"), longest):
+        res, sched, inj, _ = run(
+            spec_engine(), cfg, spec_reqs, f"(b) {site} on request {rid}",
+            inj=FaultInjector(seed=0, rates={site: 1.0}, targets={rid},
+                              max_faults=1), debug_invariants=True, **dense)
+        if inj.n_fired(site) != 1 or res[rid].status != "internal_error" \
+                or res[rid].token_ids != \
+                sbase[rid].token_ids[:res[rid].n_tokens]:
+            raise AssertionError(f"(b) {site}: {inj.log}, request {rid} "
+                                 f"{res[rid].status} {res[rid].error}")
+        same(res, sbase, f"(b) {site}",
+             rows=[i for i in range(N_REQUESTS) if i != rid])
+        log(f"[faults] (b) {site} fired at tick {inj.log[0].tick} on "
+            f"request {rid}: {res[rid].error}")
+    sup = DegradationSupervisor(max_retries=1, backoff_s=0.0,
+                                recover_after=4)
+    res, sched, _, st = run(
+        spec_engine(), cfg, spec_reqs, "(b) device_error",
+        inj=FaultInjector(seed=2, rates={"device_error": 1.0},
+                          max_faults=2), sup=sup, debug_invariants=True,
+        **dense)
+    same(res, sbase, "(b) device_error")
+    if st["n_engine_resets"] != 1 or sup.level != 0:
+        raise AssertionError(f"(b) device_error: {st}")
+    drained(sched, "(b) device_error")
+    del model, params
+    torch.cuda.empty_cache()
+
+
+def _sigkill_drill() -> int:
+    """Reference, crash and restore runs of ``repro_torch.launch.serve``;
+    fails unless the crashed run dies by SIGKILL and the restored run's
+    ``IDS`` lines equal the reference run's.  Returns the request count."""
+    import os
+    import signal
+    import tempfile
+
+    def serve(*extra):
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        p = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                            *DRILL_ARGS, *extra], cwd=ROOT, env=env,
+                           capture_output=True, text=True, timeout=300)
+        return p, [ln for ln in p.stdout.splitlines()
+                   if ln.startswith("IDS ")]
+
+    ref, want = serve()
+    if ref.returncode != 0 or not want:
+        raise AssertionError(f"drill reference run: rc {ref.returncode}\n"
+                             f"{ref.stderr[-2000:]}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(pathlib.Path(tmp) / "journal")
+        crash, _ = serve("--journal", path, "--crash-after-syncs",
+                         str(DRILL_CRASH_AFTER))
+        if crash.returncode != -signal.SIGKILL:
+            raise AssertionError(f"drill crash run: rc {crash.returncode}, "
+                                 f"not SIGKILL\n{crash.stderr[-2000:]}")
+        rest, got = serve("--journal", path, "--restore")
+    if rest.returncode != 0 or got != want:
+        raise AssertionError(f"drill restore run: rc {rest.returncode}, "
+                             f"IDS {got} against {want}\n"
+                             f"{rest.stderr[-2000:]}")
+    for ln in rest.stdout.splitlines():
+        if ln.startswith("[restore]"):
+            log(f"[faults] (c) drill: {ln[:160]}")
+    return len(want)
+
+
 def _finite(k) -> bool:
     nums = [k[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms",
                                "max_abs_err")]
@@ -1943,6 +2344,7 @@ def main() -> int:
                                     paths["deepseek-v3-671b"])
         kernels = timed("kernels", phase_kernels, torch, card, paths, scans,
                         attn_long, split_long, argmax_long)
+        timed("faults and durability", phase_faults, torch, card, shared)
     except Exception as e:  # every phase's failure fails the run
         import traceback
         traceback.print_exc()

@@ -23,8 +23,16 @@ MAX_SPLIT_DIM = 64  # split score: width of the second (rope) term
 # (device index, stream) -> int32 counters of the plain-score kernel's split
 # merge: allocated zero, and every launch leaves them zero again, so a call
 # needs no memset kernel of its own.  One buffer a stream: launches on one
-# stream never overlap.
+# stream never overlap.  A launch that failed midway may leave a counter
+# set, so the scheduler's engine reset drops them (``drop_scratch``) and the
+# next launch allocates zeroed ones.
 _COUNTERS: dict = {}
+
+
+def drop_scratch() -> None:
+    """Forget every stream's merge counters: the next launch allocates
+    zeroed ones instead of trusting what a failed launch left."""
+    _COUNTERS.clear()
 
 
 def _check_operands(name, q, *kv):

@@ -20,8 +20,17 @@ from repro_torch.kernels.masked_sample.ref import argmax_plan
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MASK_BYTE_DTYPES = (torch.bool, torch.int8, torch.uint8)
 # (device index, stream) -> (int32 counters, int64 scratch of (value, index)
-# pairs), grown on demand
+# pairs), grown on demand.  A launch that failed midway may leave a counter
+# set, so the scheduler's engine reset drops them (``drop_scratch``) and the
+# next launch allocates zeroed ones.
 _SCRATCH: dict = {}
+
+
+def drop_scratch() -> None:
+    """Forget every stream's counters and pair scratch: the next launch
+    allocates zeroed counters instead of trusting what a failed launch
+    left."""
+    _SCRATCH.clear()
 
 
 def _check_logits(name, logits, mask):

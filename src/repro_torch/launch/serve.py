@@ -20,6 +20,21 @@ serves it at full width with its depth cut.  The scheduler pages the
 cache only where every block is attention (GQA or MLA), and the header
 line says which layout it chose.  ``--speculative --spec-s 8`` turns on
 speculative decoding; each result line then says ``spec accepted/proposed``.
+
+Failure semantics and durability: ``--deadline-s`` and ``--queue-limit``
+bound a request's wall time and the waiting queue; ``--journal PATH``
+journals the run (fsynced at tick boundaries), ``--restore --journal
+PATH`` resumes a crashed run from it, and ``--crash-after-syncs K`` kills
+the process by SIGKILL after the journal's K-th fsync.  ``--print-ids``
+prints one ``IDS <rid> <token ids...>`` line a request, so a restored run
+can be held bitwise to an uninterrupted one:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --prompts 4 --slots 2 --max-tokens 16 --journal $TMPDIR/j \
+      --crash-after-syncs 4          # dies by SIGKILL
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --prompts 4 --slots 2 --max-tokens 16 --journal $TMPDIR/j \
+      --restore --print-ids
 """
 import argparse
 
@@ -60,9 +75,41 @@ def parse_args(argv=None):
                          "capacity-equivalent slots*max_len/page_size)")
     ap.add_argument("--no-paged", action="store_true",
                     help="force contiguous per-slot KV stripes")
+    ap.add_argument("--dtype", default=None,
+                    choices=["float32", "bfloat16"],
+                    help="weights' and activations' dtype (default: the "
+                         "config's); float32 makes a restored run bitwise "
+                         "comparable with an uninterrupted one")
+    ap.add_argument("--deadline-s", type=float, default=None,
+                    help="per-request wall-clock deadline in seconds "
+                         "(queue wait included); overdue requests end "
+                         "with status deadline_exceeded")
+    ap.add_argument("--queue-limit", type=int, default=None,
+                    help="bound the waiting queue: overflow submissions "
+                         "end at once with status rejected")
+    ap.add_argument("--journal", default=None, metavar="PATH",
+                    help="crash-consistent token journal (write-ahead "
+                         "log), fsynced at tick boundaries; restart with "
+                         "--restore to resume")
+    ap.add_argument("--journal-sync-every", type=int, default=1,
+                    help="fsync the journal every N ticks")
+    ap.add_argument("--restore", action="store_true",
+                    help="replay --journal PATH instead of submitting "
+                         "fresh prompts: live requests resume from their "
+                         "validated committed prefix")
+    ap.add_argument("--crash-after-syncs", type=int, default=None,
+                    metavar="K",
+                    help="fault drill: SIGKILL this process after the "
+                         "journal's K-th fsync")
+    ap.add_argument("--print-ids", action="store_true",
+                    help="print one 'IDS <rid> <token ids...>' line a "
+                         "result")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: the card)")
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if args.restore and not args.journal:
+        ap.error("--restore requires --journal PATH")
+    return args
 
 
 def build_engine(args):
@@ -96,6 +143,8 @@ def build_engine(args):
                                   max_seq_len=4096)
     if args.kernels:
         cfg = dataclasses.replace(cfg, use_pallas_kernels=True)
+    if args.dtype:
+        cfg = dataclasses.replace(cfg, dtype=args.dtype)
     model = build_model(cfg)
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
@@ -107,7 +156,8 @@ def build_engine(args):
 
     decode = DecodeParams(temperature=args.temperature,
                           max_tokens=args.max_tokens,
-                          speculative=args.speculative, spec_s=args.spec_s)
+                          speculative=args.speculative, spec_s=args.spec_s,
+                          deadline_s=args.deadline_s)
     specs = [ConstraintSpec() if name == "none"
              or args.mode == "unconstrained"
              else ConstraintSpec(grammar=name, mode=args.mode)
@@ -122,14 +172,45 @@ def build_engine(args):
     return engine, requests, labels
 
 
+def _print_ids(results) -> None:
+    for rid, r in enumerate(results):
+        print(f"IDS {rid} " + " ".join(str(t) for t in r.token_ids))
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
     engine, requests, labels = build_engine(args)
-    if len(requests) > 1:
+    journal = None
+    if args.journal:
+        from repro_torch.serving import TokenJournal
+        journal = TokenJournal(args.journal,
+                               sync_every=args.journal_sync_every,
+                               crash_after_syncs=args.crash_after_syncs)
+    pool = dict(paged=False if args.no_paged else None,
+                page_size=args.page_size, n_pages=args.pool_pages)
+    if args.restore:
+        # the same seeded engine as the crashed run, so re-prefill
+        # regenerates its logits, and its slot count, so the batch shapes
+        # are the crashed run's; the reopened journal keeps the resumed
+        # run durable
+        sched = engine.restore(args.journal, journal=journal,
+                               capacity=min(args.slots, args.prompts),
+                               **pool)
+        n_live = len(sched.waiting)
+        results = sched.run()
+        print(f"[restore] {args.journal}: {len(results)} journaled "
+              f"request(s), {n_live} resumed live; stats={sched.stats()}")
+        for r in results:
+            print(f"--- out[status={r.status}, {r.n_tokens} toks, "
+                  f"{r.n_replayed_tokens} replayed]: {r.text[:120]!r}"
+                  + (f" error={r.error}" if r.error else ""))
+        if args.print_ids:
+            _print_ids(results)
+        return
+    if len(requests) > 1 or journal is not None:
         results = engine.generate_batch(
-            requests, max_batch=args.slots,
-            paged=False if args.no_paged else None,
-            page_size=args.page_size, n_pages=args.pool_pages)
+            requests, max_batch=args.slots, queue_limit=args.queue_limit,
+            journal=journal, **pool)
         layout = ("paged KV" if engine.last_batch_stats["paged"]
                   else "contiguous KV")
         print(f"[continuous batching: {len(requests)} requests, "
@@ -144,6 +225,8 @@ def main(argv=None) -> None:
               f"spec {r.n_spec_accepted}/{r.n_spec_proposed}]: "
               f"{r.text[:120]!r}"
               + (f" error={r.error}" if r.error else ""))
+    if args.print_ids:
+        _print_ids(results)
 
 
 if __name__ == "__main__":

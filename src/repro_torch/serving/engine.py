@@ -28,8 +28,13 @@ rewinding ``len``; recurrent caches (Mamba1/Mamba2) are refed from a copy
 of their state taken before the verify forward, because the port's caches
 are written in place.
 
+``generate_batch`` takes the reference's failure and durability knobs
+(deadlines, the queue limit and timeout, a ``FaultInjector``, the
+invariant audit, a ``TokenJournal``, a ``DegradationSupervisor``), and
+``restore`` resumes a crashed run from its journal.
+
 Not ported yet (ROADMAP Queue 1): device grammar tables and the fused
-loop, ``restore``/journaling and ``pin_prompt``/prefix cache.
+loop, and ``pin_prompt``/prefix cache.
 """
 from __future__ import annotations
 
@@ -615,8 +620,14 @@ class ServingEngine:
                        max_batch: Optional[int] = None,
                        paged: Optional[bool] = None,
                        page_size: Optional[int] = None,
-                       n_pages: Optional[int] = None
-                       ) -> List[GenerationResult]:
+                       n_pages: Optional[int] = None,
+                       queue_limit: Optional[int] = None,
+                       queue_timeout_s: Optional[float] = None,
+                       default_deadline_s: Optional[float] = None,
+                       fault_injector=None,
+                       debug_invariants: bool = False,
+                       journal=None,
+                       supervisor=None) -> List[GenerationResult]:
         """Serve ``requests`` through the continuous-batching scheduler.
         ``max_batch`` caps the decode batch (slots); extra requests wait
         and reuse slots.  The KV cache is paged by default on pageable
@@ -624,7 +635,15 @@ class ServingEngine:
         an undersized pool exerts admission backpressure and recompute
         preemption instead of running out of memory).  Call
         :meth:`precompute` first to keep tree building off the serving
-        critical path."""
+        critical path.
+
+        The failure and durability knobs pass straight to the scheduler:
+        ``queue_limit``/``queue_timeout_s`` bound the waiting queue,
+        ``default_deadline_s`` the wall time of requests without their own
+        ``DecodeParams.deadline_s``; ``fault_injector``,
+        ``debug_invariants``, ``journal`` (see :meth:`restore`) and
+        ``supervisor`` as there.  Every request gets a result; a non-ok
+        one carries its ``status`` and ``error``."""
         from repro_torch.serving.scheduler import ContinuousBatchingScheduler
         cap = min(len(requests), max_batch) if max_batch else len(requests)
         kwargs = {}
@@ -634,11 +653,43 @@ class ServingEngine:
             kwargs["page_size"] = page_size
         if n_pages is not None:
             kwargs["n_pages"] = n_pages
-        sched = ContinuousBatchingScheduler(self, capacity=cap, **kwargs)
+        sched = ContinuousBatchingScheduler(
+            self, capacity=cap, queue_limit=queue_limit,
+            queue_timeout_s=queue_timeout_s,
+            default_deadline_s=default_deadline_s,
+            fault_injector=fault_injector,
+            debug_invariants=debug_invariants,
+            journal=journal, supervisor=supervisor, **kwargs)
         sessions = [sched.submit(r) for r in requests]
         sched.run()
         self.last_batch_stats = sched.stats()
         return [s.result for s in sessions]
+
+    def restore(self, journal_path: str, max_batch: Optional[int] = None,
+                journal=None, **scheduler_kwargs):
+        """Cold-restart recovery: replay the journal at ``journal_path``
+        and return a scheduler holding every journaled request -- terminal
+        ones with their journaled result, live ones rebuilt (validated
+        prefix replayed through a fresh checker, RNG stream restored) and
+        queued for re-prefill.  ``run()`` it to finish them; greedy rows
+        end bitwise equal to an uninterrupted run.  Pass ``journal``
+        (typically ``TokenJournal(journal_path)``, which truncates a torn
+        tail) to keep the resumed run durable in the same file: replayed
+        state is journaled idempotently, so repeated crash/restore cycles
+        converge."""
+        from repro_torch.serving.journal import replay_journal
+        from repro_torch.serving.scheduler import ContinuousBatchingScheduler
+        entries = replay_journal(journal_path)
+        cap = scheduler_kwargs.pop("capacity", None)
+        if cap is None:
+            live = sum(1 for e in entries.values()
+                       if e.terminal is None and e.recoverable)
+            cap = max(1, min(live, max_batch) if max_batch else live)
+        sched = ContinuousBatchingScheduler(
+            self, capacity=cap, journal=journal, **scheduler_kwargs)
+        for entry in entries.values():
+            sched.adopt(entry)
+        return sched
 
     # -- template mode ------------------------------------------------------------
 

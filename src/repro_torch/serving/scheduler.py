@@ -37,16 +37,36 @@ Per tick:
    their own ``len`` (pages wholly beyond it return to the pool at once)
    while recurrent rows are refed from a copy of their state taken before
    the verify forward -- grouped by accepted length, so each group is one
-   B=K gather, decode and scatter.
+   B=K gather, decode and scatter;
+ - failure semantics: every request ends in one terminal status (ok,
+   dead_end, deadline_exceeded, cancelled, rejected, internal_error).  A
+   tick starts with a lifecycle sweep (``_reap``) that honours
+   ``cancel(rid)``, per-request and default deadlines and the queue-wait
+   timeout; ``queue_limit`` sheds overflowing submissions.  A row's fault
+   (non-finite logits, a checker exception) fails that row alone.  A
+   seeded ``FaultInjector`` is consulted at the reference's sites in the
+   reference's order, and ``debug_invariants`` audits the pool and the
+   slots at every tick boundary;
+ - degradation: the tick's readback runs under the supervisor's guard; a
+   failure that outlives its retries resets the engine (every resident is
+   recompute-preempted, the cache and the kernels' scratch re-initialised)
+   and steps the ladder down.  Both host levels, 1 ("host") and 2
+   ("dense"), select through the masked-argmax kernel on the scratch the
+   reset has just zeroed; clean ticks climb the ladder back;
+ - durability: with a ``TokenJournal`` every lifecycle event and each
+   tick's committed tokens are journaled, written and fsynced at the tick
+   boundary only; ``adopt`` rebuilds a journaled request on restart, and
+   re-admission re-prefills its validated prefix, so greedy output is
+   bitwise equal to an uninterrupted run.
 
 Per-request outputs match ``ServingEngine.generate`` token for token.
-Not ported yet (ROADMAP Queue 1): deadlines, cancellation and fault
-injection, the device-resident loop, the journal, the supervisor and the
-prefix cache.
+Not ported yet (ROADMAP Queue 1): the device-resident loop and its fault
+sites, and the prefix cache.
 """
 from __future__ import annotations
 
 import collections
+import dataclasses
 import time
 from typing import Dict, List, Optional, Union
 
@@ -54,13 +74,18 @@ import numpy as np
 import torch
 
 from repro_torch.core import bitmask
+from repro_torch.kernels.decode_attention import kernel as attn_kernel
+from repro_torch.kernels.masked_sample import kernel as mask_kernel
 from repro_torch.kernels.masked_sample.ops import masked_argmax
 from repro_torch.models import kvcache
-from repro_torch.serving.request import Request, select_token
+from repro_torch.serving.faults import (FaultInjector, InjectedFault,
+                                        InvariantViolation, check_invariants)
+from repro_torch.serving.journal import JournalEntry, TokenJournal
+from repro_torch.serving.request import (ConstraintSpec, DecodeParams,
+                                         Request, select_token)
 from repro_torch.serving.session import GenerationResult, Session
+from repro_torch.serving.supervisor import DegradationSupervisor
 
-FAILURE_TODO = ("deadlines are not ported to repro_torch yet (ROADMAP "
-                "Queue 1: failure semantics and faults)")
 
 
 # -- page allocation -----------------------------------------------------------
@@ -190,14 +215,37 @@ class ContinuousBatchingScheduler:
     max_len / page_size + the trash page).  A smaller pool still serves a
     full batch of short requests; when it runs dry, admission waits and
     resident rows are recompute-preempted youngest first.
+
+    Lifecycle and faults: ``queue_limit`` bounds the waiting queue,
+    ``queue_timeout_s`` the time a request may wait in it, and
+    ``default_deadline_s`` the wall time of a request that carries no
+    ``DecodeParams.deadline_s``.  ``fault_injector`` wires a seeded
+    ``FaultInjector``, ``debug_invariants`` audits every tick boundary,
+    ``journal`` a ``TokenJournal`` (see ``adopt``) and ``supervisor`` a
+    ``DegradationSupervisor``.
     """
 
     def __init__(self, engine, capacity: int = 4,
                  paged: Optional[bool] = None, page_size: int = 64,
-                 n_pages: Optional[int] = None):
+                 n_pages: Optional[int] = None,
+                 queue_limit: Optional[int] = None,
+                 queue_timeout_s: Optional[float] = None,
+                 default_deadline_s: Optional[float] = None,
+                 fault_injector: Optional[FaultInjector] = None,
+                 debug_invariants: bool = False,
+                 journal: Optional[TokenJournal] = None,
+                 supervisor: Optional[DegradationSupervisor] = None):
         self.eng = engine
         self.dev = engine.device
         self.capacity = max(1, capacity)
+        # a bounded queue sheds overflow with `rejected`; queued requests
+        # older than queue_timeout_s shed the same way; a request's own
+        # deadline_s (else default_deadline_s) bounds its wall time
+        self.queue_limit = queue_limit
+        self.queue_timeout_s = queue_timeout_s
+        self.default_deadline_s = default_deadline_s
+        self.injector = fault_injector
+        self.debug_invariants = debug_invariants
         self.waiting: "collections.deque[Session]" = collections.deque()
         self.slots: List[Optional[Session]] = [None] * self.capacity
         can_page = kvcache.pageable(engine.model.cfg)
@@ -256,19 +304,51 @@ class ContinuousBatchingScheduler:
         self.finished: List[Session] = []
         self._finished_now: List[Session] = []
         self.status_counts = collections.Counter()
+        self._fail_log: List = []      # (rid, error) per quarantined row
+        # the journal only buffers during a tick; its file I/O happens in
+        # _journal_tick at the tick boundary.  _jmark[rid] = tokens already
+        # journaled for that rid, so a tick writes a commit delta
+        self.journal = journal
+        self._jmark: Dict[int, int] = {}
+        # engine-wide ladder for a sick device; row faults stay per row
+        self.sup = supervisor or DegradationSupervisor()
+        # effective capacity under allocation pressure: alloc_fail shrinks
+        # it, each clean tick grows it back by one
+        self._cap_eff = self.capacity
+        self.n_engine_resets = 0       # cache re-inits after a device error
+        self.n_capacity_shrinks = 0    # alloc_fail-driven _cap_eff drops
+        self.n_replayed_tokens = 0     # journal-restored, not re-decoded
+        self._shrunk_tick = False      # alloc_fail fired this tick
 
     # -- public API -------------------------------------------------------------
 
     def submit(self, request: Union[str, Request],
                extra_inputs=None) -> Session:
         """Queue one request (a Request, or a bare prompt string for the
-        engine-default request)."""
+        engine-default request).  Past ``queue_limit`` the returned session
+        already carries a ``rejected`` result."""
         sess = self.eng.make_session(self._next_rid, request, extra_inputs)
-        if sess.deadline_s is not None:
-            raise NotImplementedError(FAILURE_TODO)
         self._next_rid += 1
+        self._journal_submit(sess)
+        if self.queue_limit is not None \
+                and len(self.waiting) >= self.queue_limit:
+            self._finish(sess, status="rejected",
+                         error=f"waiting queue full "
+                               f"(queue_limit={self.queue_limit})")
+            return sess
         self.waiting.append(sess)
         return sess
+
+    def cancel(self, rid: int) -> bool:
+        """Request cancellation of a waiting or resident request; it takes
+        effect at the next tick boundary (status ``cancelled``, slot and
+        pages freed).  False when no live request has this rid."""
+        for sess in list(self.waiting) + self.slots:
+            if sess is not None and sess.rid == rid \
+                    and sess.result is None:
+                sess.cancel_requested = True
+                return True
+        return False
 
     def run(self) -> List[GenerationResult]:
         """Drive all submitted sessions to a terminal status; results in
@@ -279,19 +359,33 @@ class ContinuousBatchingScheduler:
         return [s.result for s in done]
 
     def stats(self) -> Dict[str, object]:
-        """Operational counters for benchmarks and monitoring."""
-        return dict(paged=self.paged, n_fwd=self.n_fwd,
-                    n_decode=self.n_decode,
-                    n_preempt=self.n_preempt,
-                    n_host_syncs=self.n_host_syncs,
-                    premask_hits=self.premask_hits,
-                    premask_skips=self.premask_skips,
-                    mask_cache_hits=self.mask_cache_hits,
-                    status_counts=dict(self.status_counts))
+        """Operational counters for benchmarks and monitoring: the
+        degradation ladder's state, the durability and pressure counters
+        and the tick counters."""
+        s = self.sup.stats()
+        s.update(
+            n_engine_resets=self.n_engine_resets,
+            n_capacity_shrinks=self.n_capacity_shrinks,
+            n_replayed_tokens=self.n_replayed_tokens,
+            cap_eff=self._cap_eff,
+            journal_syncs=(0 if self.journal is None
+                           else self.journal.n_syncs),
+            paged=self.paged, n_fwd=self.n_fwd, n_decode=self.n_decode,
+            n_preempt=self.n_preempt, n_host_syncs=self.n_host_syncs,
+            premask_hits=self.premask_hits,
+            premask_skips=self.premask_skips,
+            mask_cache_hits=self.mask_cache_hits,
+            status_counts=dict(self.status_counts))
+        return s
 
     def step(self) -> List[Session]:
-        """One scheduler tick: admit -> select -> decode.  Returns the
-        sessions that reached a terminal status since the last drain."""
+        """One scheduler tick: reap -> admit -> select -> decode, then the
+        journal, the ladder and (under ``debug_invariants``) the audit.
+        Returns the sessions that reached a terminal status since the last
+        drain."""
+        if self.injector is not None:
+            self.injector.begin_tick()
+        self._reap()
         self._admit()
         if any(s is not None for s in self.slots):
             width = self._verify_width()
@@ -300,8 +394,58 @@ class ContinuousBatchingScheduler:
             else:
                 self._plain_step()
         self._reset_vacant_lens()
+        self._journal_tick()
+        self._supervisor_tick()
+        if self.debug_invariants:
+            problems = check_invariants(self)
+            if problems:
+                raise InvariantViolation("; ".join(problems))
         done, self._finished_now = self._finished_now, []
         return done
+
+    # -- lifecycle: deadlines / cancellation ------------------------------------
+
+    def _overdue(self, sess: Session, now: float, waiting: bool):
+        """(status, reason) if the session must end at this tick boundary,
+        else (None, None)."""
+        if sess.cancel_requested:
+            return "cancelled", ("cancelled while waiting" if waiting
+                                 else "cancelled while decoding")
+        deadline = sess.deadline_s
+        if deadline is None:
+            deadline = self.default_deadline_s
+        waited = now - sess.t_submit
+        if deadline is not None and waited > deadline:
+            return "deadline_exceeded", (
+                f"deadline {deadline:g}s exceeded after {waited:.3f}s"
+                + (" in queue" if waiting else ""))
+        if waiting and self.queue_timeout_s is not None \
+                and waited > self.queue_timeout_s:
+            return "rejected", (f"queue-wait timeout "
+                                f"({self.queue_timeout_s:g}s) exceeded")
+        return None, None
+
+    def _reap(self) -> None:
+        """Tick-boundary sweep: cancellations, deadlines (waiting and
+        resident) and the queue-wait timeout.  Freed slots and pages serve
+        this very tick's admission."""
+        now = time.perf_counter()
+        if self.waiting:
+            keep: "collections.deque[Session]" = collections.deque()
+            while self.waiting:
+                sess = self.waiting.popleft()
+                status, why = self._overdue(sess, now, waiting=True)
+                if status is None:
+                    keep.append(sess)
+                else:
+                    self._finish(sess, status=status, error=why)
+            self.waiting = keep
+        for sess in list(self.slots):
+            if sess is None:
+                continue
+            status, why = self._overdue(sess, now, waiting=False)
+            if status is not None:
+                self._finish(sess, status=status, error=why)
 
     def _verify_width(self) -> int:
         """Verify width of this tick: 1 + the widest resident speculative
@@ -332,6 +476,8 @@ class ContinuousBatchingScheduler:
     def _admit(self) -> None:
         eng = self.eng
         while self.waiting and None in self.slots:
+            if sum(s is not None for s in self.slots) >= self._cap_eff:
+                break      # capacity shrunk under allocation pressure
             slot = self.slots.index(None)
             sess = self.waiting[0]
             # re-admission after preemption re-prefills the generated
@@ -345,8 +491,10 @@ class ContinuousBatchingScheduler:
             page_ids = None
             if self.paged:
                 # +1: the first decode write must fit without a new page
-                page_ids = self.pool.alloc(_ceil_div(len(ids) + 1,
-                                                     self.page_size))
+                n_pg = _ceil_div(len(ids) + 1, self.page_size)
+                if self._inject("page_exhaustion", sess):
+                    break      # injected dry pool: backpressure path
+                page_ids = self.pool.alloc(n_pg)
                 if page_ids is None:
                     break          # backpressure: wait for frees (FIFO)
             self.waiting.popleft()
@@ -396,6 +544,13 @@ class ContinuousBatchingScheduler:
             sess.slot = slot
             sess.t_admit = time.perf_counter()
             self.slots[slot] = sess
+            if self.journal is not None:
+                self.journal.append({"kind": "admit", "rid": sess.rid,
+                                     "slot": slot, "cached_pages": 0,
+                                     "cached_checker":
+                                         sess.cached_checker})
+            if self._inject("prefill_nan", sess):
+                self._logits[slot] = float("nan")
 
     def _reset_vacant_lens(self) -> None:
         """Pin vacant slots' ragged ``len`` to 0 so the decode kernel's
@@ -416,6 +571,14 @@ class ContinuousBatchingScheduler:
         if error is not None and sess.error is None:
             sess.error = error
         sess.finish(self.eng.tok.decode)
+        if self.journal is not None:
+            self._journal_commit(sess)
+            self.journal.append({
+                "kind": "terminal", "rid": sess.rid,
+                "status": sess.result.status, "error": sess.result.error,
+                "finished": sess.finished_eos,
+                "dead_end": sess.dead_end})
+            self._jmark.pop(sess.rid, None)
         if sess.slot >= 0:
             self._premask.pop(sess.slot, None)
             if self.paged:
@@ -428,7 +591,199 @@ class ContinuousBatchingScheduler:
 
     def _fail(self, sess: Session, error: str) -> None:
         """Quarantine a failure to this row (``internal_error``)."""
+        self._fail_log.append((sess.rid, error))
         self._finish(sess, status="internal_error", error=error)
+
+    # -- fault injection sites --------------------------------------------------
+
+    def _inject(self, site: str, sess: Optional[Session] = None) -> bool:
+        """Consult the fault plan at one site (no-op without an
+        injector)."""
+        if self.injector is None:
+            return False
+        return self.injector.fire(site,
+                                  rid=None if sess is None else sess.rid)
+
+    def _inject_nan_rows(self, site: str) -> None:
+        """Poison staged logits rows per the fault plan; the next
+        selection's finiteness check finds them as it would a real device
+        fault."""
+        if self.injector is None:
+            return
+        for slot, sess in enumerate(self.slots):
+            if sess is not None and self._inject(site, sess):
+                self._logits[slot] = float("nan")
+
+    # -- durability: write-ahead journal ----------------------------------------
+
+    def _journal_submit(self, sess: Session) -> None:
+        """Buffer the submit record: what replay needs to rebuild the
+        request.  An ad-hoc grammar object or ``extra_inputs`` cannot be
+        serialized, so such a request is journaled as unrecoverable."""
+        if self.journal is None:
+            return
+        rec = {"kind": "submit", "rid": sess.rid, "prompt": sess.prompt}
+        recoverable, reason = True, None
+        spec = getattr(sess.request, "constraint", None)
+        if spec is not None and spec.grammar is not None \
+                and not isinstance(spec.grammar, str):
+            recoverable = False
+            reason = ("ad-hoc grammar object is not serializable; "
+                      "register it by name to make the request "
+                      "recoverable")
+            rec["constraint"] = None
+        else:
+            rec["constraint"] = (None if spec is None
+                                 else dataclasses.asdict(spec))
+        dec = getattr(sess.request, "decode", None)
+        rec["decode"] = None if dec is None else dataclasses.asdict(dec)
+        if sess.extra_inputs:
+            recoverable = False
+            reason = "extra_inputs are not journaled"
+        rec["recoverable"] = recoverable
+        rec["reason"] = reason
+        self.journal.append(rec)
+
+    def _journal_commit(self, sess: Session) -> None:
+        """Buffer a commit delta: the validated tokens beyond what was
+        journaled, tagged with their offset (replay merges idempotently),
+        with the sampling RNG state that drew them."""
+        done = len(sess.out_ids)
+        mark = self._jmark.get(sess.rid, 0)
+        if done <= mark:
+            return
+        rec = {"kind": "commit", "rid": sess.rid, "off": mark,
+               "toks": [int(t) for t in sess.out_ids[mark:]],
+               "n_draws": sess.n_draws}
+        if sess._rng is not None:
+            rec["rng"] = sess._rng.bit_generator.state
+        self.journal.append(rec)
+        self._jmark[sess.rid] = done
+
+    def _journal_tick(self) -> None:
+        """The tick-boundary durability point: commit deltas of every live
+        session (resident and preempted), then the journal's batched write
+        and fsync.  The only place a tick flushes."""
+        if self.journal is None:
+            return
+        for sess in list(self.slots) + list(self.waiting):
+            if sess is not None and sess.result is None:
+                self._journal_commit(sess)
+        self.journal.commit_tick()
+
+    # -- degradation supervisor -------------------------------------------------
+
+    def _supervisor_tick(self) -> None:
+        """Close the tick for the ladder: a tick without alloc_fail regrows
+        effective capacity by one, and clean ticks count toward a climb."""
+        if self._shrunk_tick:
+            self._shrunk_tick = False
+        elif self._cap_eff < self.capacity:
+            self._cap_eff += 1
+        self.sup.tick_ok()
+
+    def _engine_reset(self, reason: str) -> None:
+        """The device surface is untrusted after an error escaped a
+        readback: recompute-preempt every resident (youngest first, so the
+        oldest lands at the queue front; validated prefixes ride along, so
+        outputs are unchanged) and re-initialise the batch cache, the
+        staged logits and the kernels' launch scratch."""
+        self.n_engine_resets += 1
+        self._fail_log.append((None, f"engine reset: {reason}"))
+        for sess in sorted((s for s in self.slots if s is not None),
+                           key=lambda s: s.t_admit, reverse=True):
+            self._preempt(sess)
+        eng = self.eng
+        # every reference to the old cache goes before the new one is
+        # allocated (the refeed snapshot aliases its K/V), so a reset never
+        # holds two caches at once
+        self.cache = self._logits = self._snap = None
+        attn_kernel.drop_scratch()
+        mask_kernel.drop_scratch()
+        if self.paged:
+            self.cache = eng.model.init_cache(
+                self.capacity, eng.max_len, page_size=self.page_size,
+                n_pages=self.n_pages, device=self.dev)
+            self._pages_dirty = True
+        else:
+            self.cache = eng.model.init_cache(self.capacity, eng.max_len,
+                                              device=self.dev)
+        self.cache["len"] = torch.zeros((self.capacity,), dtype=torch.int32,
+                                        device=self.dev)
+        self._logits = torch.zeros((self.capacity, eng.model.padded_vocab),
+                                   dtype=torch.float32, device=self.dev)
+        self._premask.clear()
+
+    # -- restart recovery -------------------------------------------------------
+
+    def adopt(self, entry: JournalEntry) -> Session:
+        """Rebuild one journal-replayed request on restart.  A terminal
+        entry becomes a finished shell (its result from the journaled
+        tokens and status; nothing re-decodes).  A live entry rebuilds its
+        Request, replays the validated prefix through a fresh checker
+        (a rejection fails the row: the grammar changed under it),
+        restores its sampling RNG and queues it: admission re-prefills
+        prompt + prefix as after a recompute preemption."""
+        self._next_rid = max(self._next_rid, entry.rid + 1)
+        if not entry.recoverable:
+            sess = self.eng.make_session(entry.rid, entry.prompt)
+            self._finish(sess, status="internal_error",
+                         error=f"unrecoverable from journal: "
+                               f"{entry.reason}")
+            return sess
+        req: Union[str, Request] = entry.prompt
+        if entry.constraint is not None or entry.decode is not None:
+            req = Request(
+                prompt=entry.prompt,
+                constraint=(ConstraintSpec(**entry.constraint)
+                            if entry.constraint is not None
+                            else ConstraintSpec(grammar=None,
+                                                mode="unconstrained")),
+                decode=(DecodeParams(**entry.decode)
+                        if entry.decode is not None else DecodeParams()))
+        sess = self.eng.make_session(entry.rid, req)
+        if entry.terminal is not None:
+            sess.out_ids = [int(t) for t in entry.toks]
+            sess.n_replayed = len(entry.toks)
+            sess.n_draws = entry.n_draws
+            sess.finished_eos = entry.terminal["finished"]
+            sess.dead_end = entry.terminal["dead_end"]
+            st = entry.terminal["status"]
+            self._jmark[entry.rid] = len(entry.toks)
+            self._finish(sess,
+                         status=(None if st in ("ok", "dead_end")
+                                 else st),
+                         error=entry.terminal["error"])
+            return sess
+        for tok in entry.toks:
+            try:
+                ok = (sess.checker.advance(int(tok))
+                      if sess.checker is not None else True)
+            except Exception as e:
+                self._fail(sess, f"journal replay: checker failed at "
+                                 f"position {len(sess.out_ids)}: {e!r}")
+                return sess
+            if not ok:
+                self._fail(sess, f"journal replay: checker rejected "
+                                 f"validated token {int(tok)} at position "
+                                 f"{len(sess.out_ids)} (grammar changed?)")
+                return sess
+            sess.out_ids.append(int(tok))
+            sess.budget -= 1
+        sess.n_replayed = len(entry.toks)
+        self.n_replayed_tokens += len(entry.toks)
+        sess.n_draws = entry.n_draws
+        if entry.rng_state is not None and sess.decode is not None:
+            rng = sess.decode.make_rng()
+            rng.bit_generator.state = entry.rng_state
+            sess._rng = rng
+        sess.n_preempt = entry.n_preempts
+        self._jmark[entry.rid] = len(sess.out_ids)
+        if sess.budget <= 0:
+            self._finish(sess)
+            return sess
+        self.waiting.append(sess)
+        return sess
 
     # -- page bookkeeping -------------------------------------------------------
 
@@ -446,11 +801,16 @@ class ContinuousBatchingScheduler:
         prompt + generated prefix and selection resumes where it left."""
         slot = sess.slot
         self._premask.pop(slot, None)
-        self._free_slot_pages(slot)
+        if self.paged:
+            # (the reference frees unconditionally, which fails an engine
+            # reset of dense rows: they hold no pages)
+            self._free_slot_pages(slot)
         self.slots[slot] = None
         sess.slot = -1
         sess.n_preempt += 1
         self.n_preempt += 1
+        if self.journal is not None:
+            self.journal.append({"kind": "preempt", "rid": sess.rid})
         self.waiting.appendleft(sess)
 
     def _ensure_pages(self, width: int) -> None:
@@ -471,7 +831,16 @@ class ContinuousBatchingScheduler:
                     need[slot] = want
             shortfall = sum(w - int(self._n_pages_row[s])
                             for s, w in need.items())
-            if shortfall <= self.pool.available:
+            if shortfall and self._inject("alloc_fail"):
+                # simulated allocation failure: pressure, not a row fault
+                # -- shrink effective capacity (clean ticks regrow it) and
+                # preempt below
+                self._cap_eff = max(
+                    1, sum(s is not None for s in self.slots) - 1)
+                self.n_capacity_shrinks += 1
+                self._shrunk_tick = True
+            elif shortfall <= self.pool.available and not (
+                    shortfall and self._inject("page_exhaustion")):
                 break
             victims = [s for s in self.slots if s is not None]
             if not victims:
@@ -514,6 +883,11 @@ class ContinuousBatchingScheduler:
         """Build ``sess``'s packed mask row, attributing build time to the
         session and memo hits to ``mask_cache_hits``."""
         ch = sess.checker
+        if self._inject("mask_delay", sess):
+            time.sleep(self.injector.delay_s)
+        if self._inject("mask_error", sess):
+            raise InjectedFault(
+                f"injected mask-build failure (rid={sess.rid})")
         before = getattr(ch, "n_mask_memo_hits", 0)
         t0 = time.perf_counter()
         if hasattr(ch, "mask_bits"):
@@ -564,7 +938,18 @@ class ContinuousBatchingScheduler:
         staging buffer, sampled rows host-side from their own RNG.
         Finishes dead-ended sessions.  Returns {slot: token}."""
         v = self.eng._v
-        raw, finite = self._raw_stats()
+        # guarded: an error here is the device being sick, not a row fault
+        # -- bounded retry, then an engine reset and a step down the ladder
+        ok, got = self.sup.guard(
+            "tick_readback", self._raw_stats,
+            inject=lambda: self._inject("device_error"))
+        if not ok:
+            # every resident recompute-preempts with its validated prefix,
+            # so outputs are unchanged; nothing commits this tick
+            self._engine_reset(f"tick readback failed: {got!r}")
+            self.sup.degrade("tick_readback", got)
+            return {}
+        raw, finite = got
         self.n_host_syncs += 1
         masks = self._mask_words
         row_bits: Dict[int, Optional[np.ndarray]] = {}
@@ -661,6 +1046,9 @@ class ContinuousBatchingScheduler:
                         and hasattr(ch, "clone"):
                     sess.speculator.observe(ch.state_key(), tok)
                 if ch is not None:
+                    if self._inject("advance_error", sess):
+                        raise InjectedFault(
+                            f"injected advance failure (rid={sess.rid})")
                     ch.advance(tok)
                     self._premask.pop(slot, None)  # state moved: stale
             except Exception as e:   # quarantined: evict THIS row only
@@ -714,6 +1102,7 @@ class ContinuousBatchingScheduler:
         lg = self._run_decode(torch.tensor(feed, dtype=torch.int64,
                                            device=self.dev))
         self._logits = lg[:, -1].to(torch.float32)
+        self._inject_nan_rows("decode_nan")
 
     # -- speculative decode tick (paper section 3.6) ------------------------------
 
@@ -747,6 +1136,7 @@ class ContinuousBatchingScheduler:
             lg = self._run_decode(torch.tensor(feed, dtype=torch.int64,
                                                device=self.dev))
             self._logits = lg[:, -1].to(torch.float32)
+            self._inject_nan_rows("decode_nan")
             self._shrink_pages()       # return the unused verify window
             return
         feed = [[pad] * width for _ in range(self.capacity)]
@@ -840,6 +1230,9 @@ class ContinuousBatchingScheduler:
             if tok_i != prop:
                 break
             sess.speculator.observe(ch.state_key(), tok_i)
+            if self._inject("advance_error", sess):
+                raise InjectedFault(
+                    f"injected advance failure (rid={sess.rid})")
             ch.advance(tok_i)
             self._premask.pop(slot, None)   # state moved: mask stale
             accepted += 1

@@ -5,6 +5,7 @@
    ``chip_smoke.py`` or of the port's timing tools imports either;
  - the copied framework-free modules equal their ``repro`` originals after
    the ``repro.`` -> ``repro_torch.`` import rewrite, so they cannot drift;
+   a near copy equals its original but for the lines it names;
  - the entry points refuse to run without ``device="cpu"`` when no card is
    visible;
  - the kernel wrappers take their plain versions on CPU tensors and leave
@@ -31,6 +32,24 @@ COPIED = (sorted(p.relative_to(SRC / "repro")
                                        "analysis/__init__.py",
                                        "analysis/cli.py",
                                        "analysis/report.py", "analyze.py")])
+# near copies: rel path -> the port's lines that may differ from the
+# original's at the same position; every other line is equal.  The audit of
+# faults.py reads the cache lengths of a CUDA tensor, which numpy cannot
+# take without a copy to the host; the docstrings of journal.py and
+# supervisor.py leave out the JAX package's PR and issue numbers.
+NEAR_COPIES = {
+    "serving/faults.py": {
+        '    lens = np.asarray(sched.cache["len"].cpu())',
+    },
+    "serving/journal.py": {
+        "The durability contract: a process crash — SIGKILL at",
+    },
+    "serving/supervisor.py": {
+        "The scheduler quarantines failures to their row; its audits "
+        "demote escaped",
+        '    level 0  "fused"   device-resident sync_n block loop',
+    },
+}
 IMPORT_RE = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|repro)(\.|\s|$)")
 
 
@@ -86,6 +105,15 @@ def test_port_tool_imports_no_jax_or_repro(tool):
 def test_copied_module_equals_rewritten_original(rel):
     original = (SRC / "repro" / rel).read_text()
     assert (PORT / rel).read_text() == _rewrite(original)
+
+
+@pytest.mark.parametrize("rel", sorted(NEAR_COPIES))
+def test_near_copy_differs_only_in_named_lines(rel):
+    original = _rewrite((SRC / "repro" / rel).read_text()).splitlines()
+    port = (PORT / rel).read_text().splitlines()
+    assert len(port) == len(original)
+    differ = {got for want, got in zip(original, port) if got != want}
+    assert differ == NEAR_COPIES[rel]
 
 
 def _no_card():

@@ -822,3 +822,42 @@ def test_mla_kernel_route_matches_plain_route(cuda_device, group):
         torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-4)
         i += width
     assert attn_kernel.decode_attention_split_cuda.launches == before + 3 * 2
+
+
+@pytest.mark.cuda
+def test_launches_after_engine_reset_equal_launches_before(cuda_device,
+                                                           small_tokenizer):
+    """An engine reset drops the merge counters and scratch of #1 and #2,
+    which a launch that failed midway may have left set (poisoned here):
+    the next launches allocate zeroed ones and give the bits of the
+    launches before."""
+    from repro_torch.core import grammars
+    from repro_torch.serving import ContinuousBatchingScheduler, ServingEngine
+    q, kp, vp, _, _, ln, tbl = _long_case("1000", 1, 1, cuda_device)
+    lg, bits, _ = _argmax_case(cuda_device, 4, 100352)
+    attn = decode_attention(q, kp, vp, ln, block_tables=tbl)
+    sel = masked_argmax(lg, bits)
+    assert attn_kernel._COUNTERS and mask_kernel._SCRATCH
+    for buf in attn_kernel._COUNTERS.values():
+        buf.fill_(1)
+    for counters, _ in mask_kernel._SCRATCH.values():
+        counters.fill_(1)
+    cfg = ModelConfig(arch_id="tr", family="dense", n_layers=2, d_model=64,
+                      n_heads=4, n_kv_heads=2, d_ff=128,
+                      vocab_size=small_tokenizer.vocab_size,
+                      dtype="float32", max_seq_len=256,
+                      use_pallas_kernels=True)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(0)
+    model = build_model(cfg)
+    eng = ServingEngine(model, model.init(gen, device=cuda_device),
+                        small_tokenizer, grammars.load("json"),
+                        max_len=128, device=cuda_device)
+    sched = ContinuousBatchingScheduler(eng, capacity=2)
+    sched._engine_reset("test")
+    assert not attn_kernel._COUNTERS and not mask_kernel._SCRATCH
+    assert sched.n_engine_resets == 1
+    assert torch.equal(decode_attention(q, kp, vp, ln, block_tables=tbl),
+                       attn)
+    again = masked_argmax(lg, bits)
+    assert torch.equal(again[0], sel[0]) and torch.equal(again[1], sel[1])
