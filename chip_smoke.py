@@ -68,7 +68,19 @@ non-zero without the final result line):
     beside the same requests decoded plainly, run plain, speculative,
     speculative, plain (tokens/s, forwards a token, accepted/proposed, the
     tick's breakdown: verify forward, host verification, refeed forwards;
-    and the snapshot copy of the recurrent state, timed on the card).  Every kernel counter is set to 0
+    and the snapshot copy of the recurrent state, timed on the card), (e)
+    float32 through the device loop (device grammar tables, ``sync_n`` 8)
+    against (a)'s ids and statuses: stablelm-1.6b and deepseek-v3 decode in
+    fused blocks replayed from one recorded CUDA graph (launches of #1 or
+    #1b and #2 credited a replay), host syncs a token at most 1/8 + 0.1,
+    every replayed block run under ``set_sync_debug_mode("error")`` with
+    only its one readback exempted, and one block run eagerly and by replay
+    on the same inputs, bitwise equal in outputs and cache; falcon and
+    zamba2 keep the per-token path (refeed architectures) with their rows'
+    masks gathered from the table, (f) bfloat16 for stablelm-1.6b and
+    deepseek-v3, host loop, device loop, device loop, host loop on
+    schedulers kept across runs: tok/s, host syncs a token, blocks, steps a
+    block, recording time and the card's busy share of a block.  Every kernel counter is set to 0
     just before a run and read just after it, and the run's forwards are
     counted by wrapping the engine's prefill and decode steps; a kernel of
     the model's path that did not launch, or launched another number of
@@ -92,12 +104,17 @@ non-zero without the final result line):
     prefill_nan, page_exhaustion) under the tick invariant audit
     (affected rows non-ok with a prefix of the fault-free output, or
     equal; the others equal; the pool and slots drained), a device_error
-    storm (two engine resets, the ladder down to the plain masked argmax
-    and back to level 0, peak memory against the fault-free run's), an
+    storm (two engine resets, the ladder down to the dense level, which
+    still selects through kernel #2, and back to level 0, peak memory
+    against the fault-free run's), an
     alloc_fail shrink, and a cancellation beside an expired deadline;
     (c) a journaled run crashed after its 6th fsync and restored in
     process, then the serve CLI's SIGKILL drill (reference, crash and
-    restore processes, ``IDS`` lines equal); (b) zamba2-1.2b speculative
+    restore processes, ``IDS`` lines equal); (d) the device loop's fault
+    sites on stablelm-1.6b (device_timeout, device_error, table_corrupt,
+    decode_nan): affected rows a prefix of the fault-free output, the
+    ladder from fused to host and back, a new recording after each reset;
+    (b) zamba2-1.2b speculative
     on dense rows with a targeted advance_error, a targeted decode_nan
     and a device_error reset.  A fault-free run that degrades, retries,
     resets or selects through the plain version fails.
@@ -1146,6 +1163,203 @@ def describe(cfg) -> str:
     return s
 
 
+class FusedAudit:
+    """Instruments the fused path of every scheduler for one run.  Each
+    ``_device_step`` that begins with its block's graph recorded runs under
+    ``torch.cuda.set_sync_debug_mode("error")``, with only the block's
+    readback exempted, and the readbacks are counted: a block that synced
+    anywhere else raises.  With ``check_replay`` the first replayed block
+    runs once eagerly and once by replay on the same inputs
+    (``FusedBlock.replay_matches_eager``).  Also kept: the order of
+    recordings, blocks and engine resets (``trail``), the host wall of each
+    block (``block_s``, staging to readback; recording blocks apart), the
+    launches a recording counted, and the calls of ``_gather_masks`` (rows
+    tracked on the device table in per-token ticks)."""
+
+    def __init__(self, torch, check_replay=False):
+        self.torch = torch
+        self.check_replay = check_replay
+        self.strict = self.readbacks = self.gathers = 0
+        self.replay_ok = None
+        self.block_s, self.record_block_s, self.trail = [], [], []
+        self.recorded = None
+
+    def __enter__(self):
+        from repro_torch.serving import fused, scheduler
+        torch, a = self.torch, self
+        sched_cls, block_cls = (scheduler.ContinuousBatchingScheduler,
+                                fused.FusedBlock)
+        orig = {n: getattr(sched_cls, n) for n in
+                ("_device_step", "_gather_masks", "_engine_reset")}
+        orig.update({n: getattr(block_cls, n) for n in
+                     ("readback", "launch", "run")})
+
+        def device_step(sched):
+            fb = sched._fused
+            strict = fb is not None and fb.graph is not None
+            if strict:
+                a.strict += 1
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                return orig["_device_step"](sched)
+            finally:
+                if strict:
+                    torch.cuda.set_sync_debug_mode(0)
+
+        def gather_masks(sched, staged):
+            a.gathers += 1
+            return orig["_gather_masks"](sched, staged)
+
+        def engine_reset(sched, reason):
+            a.trail.append("reset")
+            return orig["_engine_reset"](sched, reason)
+
+        def readback(fb):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return orig["readback"](fb)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+                a.readbacks += 1
+
+        def launch(fb, cache, dts):
+            if fb.graph is None:
+                a.trail.append("record")
+            a.trail.append("block")
+            if a.check_replay and a.replay_ok is None \
+                    and fb.graph is not None:
+                mode = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode(0)
+                try:
+                    a.replay_ok = fb.replay_matches_eager(cache, dts)
+                finally:
+                    torch.cuda.set_sync_debug_mode(mode)
+            else:
+                orig["launch"](fb, cache, dts)
+            a.recorded = fb.graph.recorded
+
+        def run(fb, *args):
+            recording = fb.graph is None
+            t0 = time.perf_counter()
+            try:
+                return orig["run"](fb, *args)
+            finally:
+                (a.record_block_s if recording else a.block_s).append(
+                    time.perf_counter() - t0)
+
+        self.orig = [(sched_cls, n, f) for n, f in orig.items()
+                     if n.startswith("_")] + [
+            (block_cls, n, f) for n, f in orig.items()
+            if not n.startswith("_")]
+        for cls, name, fn in ((sched_cls, "_device_step", device_step),
+                              (sched_cls, "_gather_masks", gather_masks),
+                              (sched_cls, "_engine_reset", engine_reset),
+                              (block_cls, "readback", readback),
+                              (block_cls, "launch", launch),
+                              (block_cls, "run", run)):
+            setattr(cls, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, fn in self.orig:
+            setattr(cls, name, fn)
+        self.torch.cuda.set_sync_debug_mode(0)
+
+
+def device_tables_for(eng, shared):
+    """Build ``eng``'s device tables: the JSON grammar is analysed against
+    the run's tokenizer once, and later engines are handed the stored
+    report (``build_device_tables`` trusts it)."""
+    report = shared.get("json_report")
+    if report is not None:
+        eng.analysis_reports["json"] = report
+    t0 = time.perf_counter()
+    eng.build_device_tables()
+    if "json" not in eng.device_tables:
+        raise AssertionError("the JSON grammar did not certify clean")
+    if report is None:
+        report = shared["json_report"] = eng.analysis_reports["json"]
+        tbl = eng.device_tables["json"]
+        log(f"[serve] device table: the JSON grammar certifies clean against "
+            f"the {eng.tok.vocab_size}-token tokenizer "
+            f"({report.n_mask_conflicts} conflicts, "
+            f"{report.n_hyp_truncations} truncations): "
+            f"{tbl.n_states} states, {tbl.n_bytes / 1e6:.2f} MB, analysed "
+            f"and uploaded in {time.perf_counter() - t0:.1f}s")
+
+
+def fused_run(torch, eng, reqs, sched=None, check_replay=False, sync_n=8,
+              **kw):
+    """One run of ``reqs`` through a device-loop scheduler (``sched``, or a
+    new one of ``N_REQUESTS`` slots) with every counter set to 0 just
+    before it and read just after, the run's forwards counted and its fused
+    path audited.  Returns (results, scheduler, counts, forwards, audit,
+    wall seconds)."""
+    from repro_torch.serving.scheduler import ContinuousBatchingScheduler
+    with FusedAudit(torch, check_replay) as audit, \
+            ForwardCount(eng) as fwd:
+        reset_counts()
+        t0 = time.perf_counter()
+        if sched is None:
+            sched = ContinuousBatchingScheduler(
+                eng, capacity=N_REQUESTS, page_size=PAGE_SIZE,
+                device_loop=True, sync_n=sync_n, **kw)
+        sess = [sched.submit(r) for r in reqs]
+        sched.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    return [s.result for s in sess], sched, counts, fwd, audit, wall
+
+
+def check_fused(cfg, sched, counts, fwd, audit, what):
+    """The fused path's accounting: blocks replayed from recorded graphs,
+    one readback a block, no other host sync in a replayed block, each
+    recording of the block counting ``sync_n`` launches of the path's
+    attention kernel a layer and of #2, and #1/#1b launched exactly
+    ``layers x`` (the eager forwards: host ticks, warm-ups before a
+    recording, the replay check's eager block) ``+ replays x recorded``.
+    Returns a summary line."""
+    fb = sched._fused
+    per = path_kernels(cfg)
+    attn = next(k for k in ("decode_attention", "decode_attention_split")
+                if k in per)
+    layers, n = per[attn][0], sched.sync_n
+    w = _wrappers()
+    if fb is None or fb.n_replays == 0 or audit.recorded is None:
+        raise AssertionError(f"{what}: no fused block was replayed")
+    if sched.sup.n_degrades or sched.n_engine_resets:
+        raise AssertionError(f"{what}: a fault-free run degraded "
+                             f"({[e.error for e in sched.sup.events]})")
+    rec = {name: audit.recorded.get(w[name], 0) for name in w}
+    if rec[attn] != layers * n or rec["masked_argmax_packed"] != n \
+            or sum(rec.values()) != (layers + 1) * n:
+        raise AssertionError(f"{what}: a recording counted {rec}")
+    if audit.readbacks != fb.n_blocks or audit.strict == 0:
+        raise AssertionError(f"{what}: {audit.readbacks} readbacks for "
+                             f"{fb.n_blocks} blocks, {audit.strict} audited")
+    eager = fwd.n_decode - n * fb.n_records
+    want = layers * eager + fb.n_replays * rec[attn]
+    if counts[attn] != want \
+            or counts["masked_argmax_packed"] < fb.n_replays * n:
+        raise AssertionError(
+            f"{what}: {attn} {counts[attn]} launches, expected {layers} x "
+            f"{eager} eager forwards + {fb.n_replays} replays x {rec[attn]}; "
+            f"#2 {counts['masked_argmax_packed']}")
+    off_path = [k for k, v in counts.items() if v and k not in per]
+    if off_path:
+        raise AssertionError(f"{what}: {off_path} launched off the path")
+    return (f"{fb.n_blocks} blocks ({fb.n_replays} graph replays, "
+            f"{fb.n_records} recording(s) in {fb.record_s:.2f}s), "
+            f"{audit.strict} replayed blocks under sync debug mode "
+            f"'error' with {audit.readbacks} readbacks; launches {attn} "
+            f"{counts[attn]} = {layers} x {eager} eager forwards + "
+            f"{fb.n_replays} replays x {rec[attn]}, masked_argmax_packed "
+            f"{counts['masked_argmax_packed']} ({fb.n_replays} replays x "
+            f"{rec['masked_argmax_packed']} + eager)")
+
+
 def phase_serve(torch, arch, shared):
     import dataclasses
 
@@ -1186,7 +1400,7 @@ def phase_serve(torch, arch, shared):
                               **(SPEC if spec else {})))
          for i in range(N_REQUESTS)] for spec in (True, False))
 
-    def engine_for(dtype, kernels, params=None):
+    def engine_for(dtype, kernels, params=None, device_tables=False):
         model = build_model(cfg_for(dtype, kernels))
         if params is None:
             torch.cuda.reset_peak_memory_stats()
@@ -1202,10 +1416,13 @@ def phase_serve(torch, arch, shared):
                 f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
                 f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
         eng = ServingEngine(model, params, tok, max_len=MAX_LEN,
-                            device="cuda")
-        for name, g in (("json", json_g), ("gsm8k", gsm_g)):
+                            device_tables=device_tables, device="cuda")
+        for name, g in ((("json", json_g),) if device_tables else
+                        (("json", json_g), ("gsm8k", gsm_g))):
             shared["trees"][name] = eng.register_grammar(
                 name, g, tree_cache=shared["trees"].get(name))
+        if device_tables:
+            device_tables_for(eng, shared)
         return eng
 
     def serve(eng, reqs=requests):
@@ -1305,6 +1522,53 @@ def phase_serve(torch, arch, shared):
                 f"step {k} (top-2 logit margin there "
                 f"{(top[0] - top[1]).item():.3e})")
     log(f"[serve] {arch} f32: kernel path == plain path for every request")
+
+    # (e) float32 through the device loop (sync_n 8) against (a)'s ids
+    eng_d = engine_for("float32", True, params=eng_k.params,
+                       device_tables=True)
+    res_e, sched, counts, fwd, audit, wall = fused_run(
+        torch, eng_d, requests, check_replay=True)
+    check_valid(res_e, f"{arch} f32 device-loop run")
+    st = sched.stats()
+    n_tok = sum(r.n_tokens for r in res_e)
+    for i, (a, b) in enumerate(zip(res_e, res_k)):
+        if (a.token_ids, a.status) != (b.token_ids, b.status):
+            k = next((j for j, (x, y) in enumerate(zip(a.token_ids,
+                                                       b.token_ids))
+                      if x != y), min(len(a.token_ids), len(b.token_ids)))
+            raise AssertionError(
+                f"{arch} f32 request {i}: the device loop ({a.status}, "
+                f"{a.n_tokens} tokens) and the host loop ({b.status}, "
+                f"{b.n_tokens}) diverge at step {k}; device tokens "
+                f"{[r.n_device_tokens for r in res_e]}, trail {audit.trail}")
+    text = (f"{n_tok} tokens, {st['n_device_tokens']} committed by fused "
+            f"blocks, {st['n_host_syncs']} host syncs "
+            f"({st['n_host_syncs'] / max(n_tok, 1):.3f} a token), "
+            f"{st['n_quotient_escapes']} quotient escapes, "
+            f"{st['n_table_rejects']} table rejects; {wall:.2f}s")
+    if eng_d._needs_refeed:
+        # the refeed architectures never fuse; certified rows still take
+        # their mask from the table
+        if st["n_device_tokens"] or audit.gathers == 0 \
+                or sched._fused is not None:
+            raise AssertionError(f"{arch} f32 device loop: {text}; "
+                                 f"{audit.gathers} table gathers")
+        log(f"[serve] {arch} f32 device loop: ids and statuses == (a); "
+            f"per-token path, {audit.gathers} ticks gathered tracked rows' "
+            f"masks from the device table; {text}")
+    else:
+        line = check_fused(cfg32, sched, counts, fwd, audit,
+                           f"{arch} f32 device loop")
+        if st["n_device_tokens"] == 0 \
+                or st["n_host_syncs"] / n_tok > 1 / sched.sync_n + 0.1:
+            raise AssertionError(f"{arch} f32 device loop: {text}")
+        if audit.replay_ok is not True:
+            raise AssertionError(f"{arch} f32 device loop: the replayed "
+                                 "block differs from the eager block")
+        log(f"[serve] {arch} f32 device loop: ids and statuses == (a); "
+            f"{text}; a replayed block == the same block run eagerly "
+            f"(outputs and every cache leaf, bitwise); {line}")
+    del eng_d, sched, res_e
     # the single-request path (dense B=1 cache, the attention kernel's
     # contiguous mode); its prefill and batch shapes differ from the
     # scheduler's, so equal ids are expected but not required bit for bit
@@ -1433,6 +1697,11 @@ def phase_serve(torch, arch, shared):
     out = {"counts": counts,
            "calls": {k: r.calls for k, r in recs.items() if r.calls}}
     del res, recs
+    if not eng._needs_refeed:
+        out["fused"] = _fused_bf16(torch, arch, engine_for("bfloat16", True,
+                                                           params=eng.params,
+                                                           device_tables=True),
+                                   requests)
 
     # (d) bfloat16 speculation beside the same requests decoded plainly,
     # after a speculative warm-up run (shapes, count model), in the order
@@ -1497,6 +1766,105 @@ def phase_serve(torch, arch, shared):
     log(f"[serve] {arch} weights freed: {torch.cuda.memory_allocated() / 1e9:.2f}"
         " GB still allocated")
     return out
+
+
+def _fused_bf16(torch, arch, eng, requests):
+    """Phase 5 (f): the same requests in bfloat16 through the host loop and
+    the device loop, each on one scheduler kept across runs (the device
+    loop's graph recorded in a warm-up run), in the order host, fused,
+    fused, host; tok/s, host syncs a token, blocks and steps a block, and
+    the card's busy share of a block: the profiler's device time of one
+    replay over the host wall of a block (staging to readback)."""
+    from repro_torch.serving.scheduler import ContinuousBatchingScheduler
+    scheds = {
+        "host": ContinuousBatchingScheduler(eng, capacity=N_REQUESTS,
+                                            page_size=PAGE_SIZE),
+        "fused": ContinuousBatchingScheduler(
+            eng, capacity=N_REQUESTS, page_size=PAGE_SIZE,
+            device_loop=True, sync_n=8)}
+    for sched in scheds.values():                   # warm-up runs
+        for r in requests:
+            sched.submit(r)
+        sched.run()
+    torch.cuda.synchronize()
+    fb = scheds["fused"]._fused
+    runs, audits, ids = {}, [], {}
+    for what in ("host 1", "fused 1", "fused 2", "host 2"):
+        sched = scheds[what.split()[0]]
+        before = dict(syncs=sched.n_host_syncs, dev=sched.n_device_tokens,
+                      blocks=fb.n_blocks, steps=sched.n_decode)
+        res, _, counts, _, audit, wall = fused_run(torch, eng, requests,
+                                                   sched=sched)
+        audits.append(audit)
+        n_tok = sum(r.n_tokens for r in res)
+        ids[what] = [r.token_ids for r in res]
+        runs[what] = dict(
+            tok_s=n_tok / wall, n_tok=n_tok, wall=wall,
+            syncs=sched.n_host_syncs - before["syncs"],
+            dev=sched.n_device_tokens - before["dev"],
+            blocks=fb.n_blocks - before["blocks"],
+            steps=sched.n_decode - before["steps"], counts=counts)
+    for name, sched in scheds.items():
+        if sched.sup.n_degrades or sched.n_engine_resets:
+            raise AssertionError(f"{arch} bf16 {name} loop degraded: "
+                                 f"{[e.error for e in sched.sup.events]}")
+    block_ms = sorted(t * 1e3 for a in audits for t in a.block_s)
+    wall_ms = block_ms[len(block_ms) // 2]
+    # the kernels' time in one replay, and the replay's span on the card
+    # (the gaps between the graph's kernels included)
+    dev_ms, top = _device_ms(torch, fb.graph.graph.replay)
+    span_ms = time_ms(torch, fb.graph.graph.replay, n=10)
+    # one replay from an idle card: the host's launch call, and the wall
+    # until the card has finished it
+    launch, alone = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fb.graph.graph.replay()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        launch.append((t1 - t0) * 1e3)
+        alone.append((time.perf_counter() - t0) * 1e3)
+    launch_ms, alone_ms = sorted(launch)[2], sorted(alone)[2]
+    how = "profiler"
+    if dev_ms is None:
+        dev_ms, how = span_ms, "events"
+    for what, r in runs.items():
+        log(f"[serve] {arch} bf16 device loop, {what}: {r['n_tok']} tokens "
+            f"in {r['wall']:.3f}s = {r['tok_s']:.1f} tok/s; {r['syncs']} "
+            f"host syncs ({r['syncs'] / r['n_tok']:.3f} a token); "
+            + (f"{r['blocks']} blocks, {r['dev']} tokens committed by them, "
+               f"{r['steps'] / max(r['blocks'], 1):.2f} steps a block"
+               if what.startswith("fused") else f"{r['steps']} ticks"))
+    mean = {k: sum(r["tok_s"] for w, r in runs.items() if w.startswith(k))
+            / 2 for k in ("host", "fused")}
+    log(f"[serve] {arch} bf16 device loop: tok/s fused over host (means of "
+        f"two runs each) {mean['fused']:.1f} / {mean['host']:.1f} = "
+        f"{mean['fused'] / mean['host']:.3f}; ids equal to the host loop's: "
+        f"{ids['fused 1'] == ids['host 1']}; graph recorded once in "
+        f"{fb.record_s:.3f}s (in the warm-up run); a block: host wall "
+        f"{wall_ms:.3f} ms (median of {len(block_ms)}), device "
+        f"{dev_ms:.3f} ms ({how}, one replay) = busy {dev_ms / wall_ms:.3f} "
+        f"of the block; a replay spans {span_ms:.3f} ms on the card (events, "
+        f"back to back); one replay from an idle card: the host's launch "
+        f"call {launch_ms:.3f} ms, done after {alone_ms:.3f} ms (medians "
+        f"of 5)")
+    if top:
+        log(f"[serve]   top kernels of a replayed block, ms: "
+            + "; ".join(f"{k[:60]} {t:.3f}" for k, t in top))
+    counts = runs["fused 1"]["counts"]
+    names = {w: name for name, w in _wrappers().items()}
+    recorded = {names[w]: c for w, c in fb.graph.recorded.items()}
+    replays = runs["fused 1"]["blocks"]
+    if any(counts[name] < replays * c for name, c in recorded.items()):
+        raise AssertionError(f"{arch} bf16 fused 1: launches {counts}, "
+                             f"fewer than {replays} replays x {recorded}")
+    return dict(runs=runs, block_wall_ms=wall_ms, block_dev_ms=dev_ms,
+                block_span_ms=span_ms, launch_ms=launch_ms,
+                alone_ms=alone_ms, record_s=fb.record_s,
+                replays=replays, recorded=recorded,
+                launches={name: replays * c
+                          for name, c in recorded.items()})
 
 
 def _leaves(t):
@@ -1877,6 +2245,17 @@ def phase_kernels(torch, card, paths, scans, attn_long, split_long,
         entry.update(scans[name])
         entry["verify"] = verify(scan_entry, name, arch)
         out.append(entry)
+    # the fused path (phase 5 (f), bf16 "fused 1"): graph replays times the
+    # launches one recording counted
+    for k in out:
+        fused = {arch: p["fused"] for arch, p in paths.items()
+                 if "fused" in p and p["fused"]["recorded"].get(k["name"])}
+        if fused:
+            k["fused_launches"] = {
+                arch: {"replays": f["replays"],
+                       "recorded": f["recorded"][k["name"]],
+                       "launches": f["launches"][k["name"]]}
+                for arch, f in fused.items()}
     for k in out:
         lib = ("" if k["library_ms"] is None
                else f", library {k['library_ms']:.4f} ms")
@@ -1896,6 +2275,10 @@ def phase_kernels(torch, card, paths, scans, attn_long, split_long,
                 + f": {c['ms']:.4f} ms (plain {c['plain_ms']:.4f} ms{lib}, "
                 f"bound {c['bound_ms']:.6f} ms by {c['bound_by']}) at "
                 f"{c['shape']}")
+        for arch, f in k.get("fused_launches", {}).items():
+            log(f"[kernel] {k['name']} on {arch}'s fused path (bf16 device "
+                f"loop): {f['launches']} launches = {f['replays']} graph "
+                f"replays x {f['recorded']} recorded")
     return out
 
 
@@ -1918,6 +2301,14 @@ N_FAULT_REQUESTS = 6
 STORM = {"mask_error": 0.08, "decode_nan": 0.08, "advance_error": 0.08,
          "prefill_nan": 0.05, "page_exhaustion": 0.25}
 ROW_SITES = ("mask_error", "decode_nan", "advance_error", "prefill_nan")
+# the fused path's sites (phase 8 (d)); the row sites target rids 1 and 2.
+# With seed 17 the first tick's consultations (32 decode_nan draws of the
+# block's plan, device_timeout, device_error at the block's readback) do
+# not depend on the outputs: the first block's readback fails, so the
+# ladder steps down from fused at once
+FUSED_STORM = {"device_timeout": 0.3, "device_error": 0.3,
+               "table_corrupt": 1.0, "decode_nan": 0.04}
+FUSED_STORM_SEED = 17
 # the SIGKILL drill: three runs of the serve CLI (reference, crashed after
 # its K-th journal fsync, restored); ``--no-smoke`` serves the published
 # width
@@ -2181,6 +2572,8 @@ def phase_faults(torch, card, shared):
         f"tokens replayed, ids bitwise equal to the uninterrupted run; "
         f"{wall:.1f}s on {card}; launches "
         + ", ".join(f"{k} {counts[k]}" for k in path_kernels(cfg)))
+    _fused_faults(torch, card, shared, eng, cfg, model, params, reqs, run,
+                  same, drained)
     del eng, model, params, sched
     torch.cuda.empty_cache()
 
@@ -2243,6 +2636,97 @@ def phase_faults(torch, card, shared):
     drained(sched, "(b) device_error")
     del model, params
     torch.cuda.empty_cache()
+
+
+def _fused_faults(torch, card, shared, eng, cfg, model, params, reqs, run,
+                  same, drained):
+    """Phase 8 (d): the fused path's fault sites on stablelm-1.6b in
+    float32, device loop with sync_n 8: the fault-free device-loop run
+    against the host loop, then a seeded storm of ``device_timeout``
+    (before dispatch), ``device_error`` (at the block's readback and the
+    host path's), ``table_corrupt`` (the mask-row audit) and
+    ``decode_nan`` (planned for each block), in two waves of requests on
+    one scheduler: affected rows end non-ok with a prefix of the fault-free
+    output or equal to it, the others equal, the pool drains, the ladder
+    steps down from fused and climbs back, and every reset is followed by
+    a new recording before the next block."""
+    from repro_torch.serving import (DegradationSupervisor, FaultInjector,
+                                     ServingEngine)
+    from repro_torch.serving.scheduler import ContinuousBatchingScheduler
+    deng = ServingEngine(model, params, shared["tok"], max_len=MAX_LEN,
+                         device_tables=True, device="cuda")
+    deng.register_grammar("json", shared["grammar"],
+                          tree_cache=shared["trees"]["json"])
+    device_tables_for(deng, shared)
+    dreqs = reqs[:N_REQUESTS]
+    pool = dict(capacity=N_REQUESTS, page_size=PAGE_SIZE)
+    host, _, _, _ = run(eng, cfg, dreqs, "(d) host loop", **pool)
+    base, sched, counts, fwd, audit, wall = fused_run(
+        torch, deng, dreqs, debug_invariants=True)
+    same(base, host, "(d) fault-free device loop")
+    line = check_fused(cfg, sched, counts, fwd, audit, "(d) fault-free")
+    log(f"[faults] (d) fault-free device loop == host loop: "
+        f"{sched.n_device_tokens} of {sum(r.n_tokens for r in base)} tokens "
+        f"in fused blocks, {wall:.1f}s on {card}; {line}")
+    inj = FaultInjector(seed=FUSED_STORM_SEED, rates=FUSED_STORM,
+                        targets={1, 2}, max_faults=10)
+    sup = DegradationSupervisor(max_retries=1, backoff_s=0.0,
+                                recover_after=2)
+    t0 = time.perf_counter()
+    with FusedAudit(torch) as audit:
+        sched = ContinuousBatchingScheduler(
+            deng, device_loop=True, sync_n=8, fault_injector=inj,
+            supervisor=sup, debug_invariants=True, **pool)
+        sess = []
+        for _ in range(2):            # the second wave follows the storm
+            sess += [sched.submit(r) for r in dreqs]
+            sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res = [s.result for s in sess]
+    sites = sorted({r.site for r in inj.log})
+    affected = inj.faulted_rids("decode_nan")
+    events = [(e.kind, e.level, e.what) for e in sup.events]
+    log(f"[faults] (d) fused storm fired {len(inj.log)} faults at {sites}: "
+        + ", ".join(f"{r.site}@{r.tick}/{r.rid}" for r in inj.log)
+        + f"; ladder {', '.join(f'{k}->{lv} ({w})' for k, lv, w in events)}"
+        f"; final level {sup.level}; {sched.n_engine_resets} resets; trail "
+        f"{' '.join(audit.trail)}; {sched.n_device_tokens} device tokens, "
+        f"{sched.n_quotient_escapes} quotient escapes; statuses "
+        f"{[r.status for r in res]}; {wall:.1f}s on {card}")
+    drained(sched, "(d) fused storm")
+    for i, r in enumerate(res):
+        b = base[i % N_REQUESTS]
+        if sess[i].rid in affected:
+            if not ((r.status != "ok" and r.error)
+                    or r.token_ids == b.token_ids) \
+                    or r.token_ids != b.token_ids[:r.n_tokens]:
+                raise AssertionError(f"(d) storm: affected request {i} "
+                                     f"{r.status} {r.token_ids} against "
+                                     f"{b.token_ids}")
+        elif (r.status, r.token_ids) != (b.status, b.token_ids):
+            raise AssertionError(f"(d) storm: request {i} {r.status} "
+                                 f"{r.token_ids} != {b.token_ids}")
+    down = [e for e in events if e[0] == "degrade" and e[1] == 1]
+    trail = audit.trail
+    rerecorded = all("record" in trail[i:trail.index("block", i)]
+                     for i, x in enumerate(trail)
+                     if x == "reset" and "block" in trail[i:])
+    last_reset = max((i for i, x in enumerate(trail) if x == "reset"),
+                     default=-1)
+    if len(sites) < 3 or not down or ("recover", 0, "clean-ticks") \
+            not in events or sup.level != 0 or sched.n_engine_resets < 1 \
+            or not rerecorded or "block" not in trail[last_reset + 1:] \
+            or sched.n_device_tokens == 0:
+        raise AssertionError(f"(d) fused storm: sites {sites}, ladder "
+                             f"{events}, level {sup.level}, resets "
+                             f"{sched.n_engine_resets}, trail {trail}")
+    log(f"[faults] (d) the ladder stepped down from fused "
+        f"({', '.join(w for _, _, w in down)}) and climbed back; "
+        f"{sched._fused.n_records} recordings for {sched.n_engine_resets} "
+        f"resets, each reset followed by a new recording before the next "
+        f"block; fused blocks ran after the last reset")
+    del deng, sched
 
 
 def _sigkill_drill() -> int:

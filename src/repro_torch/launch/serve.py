@@ -27,7 +27,8 @@ journals the run (fsynced at tick boundaries), ``--restore --journal
 PATH`` resumes a crashed run from it, and ``--crash-after-syncs K`` kills
 the process by SIGKILL after the journal's K-th fsync.  ``--print-ids``
 prints one ``IDS <rid> <token ids...>`` line a request, so a restored run
-can be held bitwise to an uninterrupted one:
+can be held bitwise to an uninterrupted one (the same holds for
+``--device-loop``, whose fused blocks commit the host path's tokens):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --prompts 4 --slots 2 --max-tokens 16 --journal $TMPDIR/j \
@@ -35,6 +36,11 @@ can be held bitwise to an uninterrupted one:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --prompts 4 --slots 2 --max-tokens 16 --journal $TMPDIR/j \
       --restore --print-ids
+
+``--device-tables`` builds a device grammar table for every grammar that
+certifies clean; ``--device-loop`` (which implies it) runs certified greedy
+rows through the scheduler's fused block, ``--sync-n`` decode steps a host
+sync, each block one CUDA graph replay on the card.
 """
 import argparse
 
@@ -101,6 +107,18 @@ def parse_args(argv=None):
                     metavar="K",
                     help="fault drill: SIGKILL this process after the "
                          "journal's K-th fsync")
+    ap.add_argument("--device-tables", action="store_true",
+                    help="build device grammar tables at precompute for "
+                         "every registered grammar that certifies clean "
+                         "(finite closure, no mask conflicts/truncations)")
+    ap.add_argument("--device-loop", action="store_true",
+                    help="run certified greedy rows through the fused "
+                         "device-resident decode block: one host sync a "
+                         "--sync-n tokens instead of one a token "
+                         "(implies --device-tables)")
+    ap.add_argument("--sync-n", type=int, default=8,
+                    help="fused block length: decode steps committed on "
+                         "the device between host syncs")
     ap.add_argument("--print-ids", action="store_true",
                     help="print one 'IDS <rid> <token ids...>' line a "
                          "result")
@@ -149,10 +167,20 @@ def build_engine(args):
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     params = model.init(gen, device=dev)
-    engine = ServingEngine(model, params, tok, max_len=1024, device=dev)
+    device_tables = args.device_tables or args.device_loop
+    engine = ServingEngine(model, params, tok, max_len=1024,
+                           device_tables=device_tables, device=dev)
     for name, g in loaded.items():
         engine.register_grammar(name, g)
     engine.precompute()
+    if device_tables:
+        for name, tbl in engine.device_tables.items():
+            print(f"[device-table] {name}: {tbl.n_states} states, "
+                  f"{tbl.n_bytes / 1024:.0f} KiB uploaded")
+        missing = set(loaded) - set(engine.device_tables)
+        if missing:
+            print(f"[device-table] not certified (host path): "
+                  f"{','.join(sorted(missing))}")
 
     decode = DecodeParams(temperature=args.temperature,
                           max_tokens=args.max_tokens,
@@ -187,7 +215,8 @@ def main(argv=None) -> None:
                                sync_every=args.journal_sync_every,
                                crash_after_syncs=args.crash_after_syncs)
     pool = dict(paged=False if args.no_paged else None,
-                page_size=args.page_size, n_pages=args.pool_pages)
+                page_size=args.page_size, n_pages=args.pool_pages,
+                device_loop=args.device_loop, sync_n=args.sync_n)
     if args.restore:
         # the same seeded engine as the crashed run, so re-prefill
         # regenerates its logits, and its slot count, so the batch shapes
@@ -222,8 +251,10 @@ def main(argv=None) -> None:
         print(f"    out[status={r.status}, {r.n_tokens} toks, "
               f"{r.n_forward_passes} fwd, "
               f"{r.n_interventions} interventions, "
-              f"spec {r.n_spec_accepted}/{r.n_spec_proposed}]: "
-              f"{r.text[:120]!r}"
+              f"spec {r.n_spec_accepted}/{r.n_spec_proposed}"
+              + (f", {r.n_device_tokens} device-committed"
+                 if args.device_loop else "")
+              + f"]: {r.text[:120]!r}"
               + (f" error={r.error}" if r.error else ""))
     if args.print_ids:
         _print_ids(results)

@@ -44,9 +44,6 @@ class Ctx:
     # paged KV serving: (B, max_pages) int32 block table -- position p of
     # row b lives at pool row pages[b, p // ps], offset p % ps
     pages: Optional[torch.Tensor] = None
-    # dense ragged writes: whether every row's S new positions fit below
-    # T_max (checked once per forward; writes past T_max are dropped)
-    dense_fits: Optional[bool] = None
 
     @property
     def ragged(self) -> bool:
@@ -193,17 +190,19 @@ def _write_kv(cache: Params, ctx: Ctx, **new: torch.Tensor) -> None:
         return
     t = cache[name0].shape[1]
     if ctx.ragged:
+        # writes past T_max are dropped, as a scatter drops them, without
+        # reading the lengths back: a dropped position p >= T_max writes
+        # its row's own value back at p - S instead, a position below that
+        # row's frontier which no new token of this write touches (S <= T
+        # and the dropped positions are distinct, so no index repeats)
         rows = torch.arange(b, device=first.device)[:, None].expand(b, s)
         idx = ln[:, None].long() + torch.arange(s, device=first.device)[None, :]
-        if ctx.dense_fits is None:
-            ctx.dense_fits = int(ln.max()) + s <= t
-        if ctx.dense_fits:
-            for name, x in new.items():
-                cache[name][rows, idx] = x
-        else:                      # drop writes past T_max, as a scatter does
-            keep = idx < t
-            for name, x in new.items():
-                cache[name][rows[keep], idx[keep]] = x[keep]
+        keep = idx < t
+        dst = torch.where(keep, idx, idx - s)
+        for name, x in new.items():
+            leaf = cache[name]
+            k = keep.reshape((b, s) + (1,) * (x.dim() - 2))
+            leaf[rows, dst] = torch.where(k, x, leaf[rows, dst])
         return
     # one offset for the batch: a slice update whose start is clamped so
     # the S positions fit (dynamic_update_slice's rule)

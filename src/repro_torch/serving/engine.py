@@ -33,8 +33,14 @@ are written in place.
 invariant audit, a ``TokenJournal``, a ``DegradationSupervisor``), and
 ``restore`` resumes a crashed run from its journal.
 
-Not ported yet (ROADMAP Queue 1): device grammar tables and the fused
-loop, and ``pin_prompt``/prefix cache.
+Device grammar tables: ``ServingEngine(..., device_tables=True)`` makes
+``precompute()`` build a ``DeviceGrammarTable`` for every grammar whose
+closure certificate is clean and upload them all as one
+``DeviceTableSet``; ``generate_batch(..., device_loop=True, sync_n=8)``
+then decodes certified greedy rows ``sync_n`` steps a host sync through
+the scheduler's fused block (one CUDA graph replay a block on the card).
+
+Not ported yet (ROADMAP Queue 1): ``pin_prompt`` and the prefix cache.
 """
 from __future__ import annotations
 
@@ -46,7 +52,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import bitmask
-from repro_torch.core.analysis import AnalysisReport, analyze, enforce
+from repro_torch.core.analysis import (OFF_FRONTIER, AnalysisReport,
+                                       DeviceGrammarTable, analyze, enforce)
 from repro_torch.core.baselines import TemplateSession
 from repro_torch.core.grammar import Grammar
 from repro_torch.core.scanner import Scanner
@@ -109,6 +116,59 @@ class _RowPolicy:
         return self._rng
 
 
+class DeviceTableSet:
+    """Every certified grammar's :class:`DeviceGrammarTable` merged into
+    one pair of device tensors, so the scheduler's fused block gathers any
+    row's mask with one index, whatever grammar the row decodes under:
+
+      ``mask_dev``  -- ``(total_states, ceil(V/32))`` int32 packed masks
+                       (the ``uint32`` words of the tables, bit for bit)
+      ``trans_dev`` -- ``(total_states, V)`` int32 token -> next state
+
+    Per-grammar state ids are offset into the concatenated range
+    (``offsets[name]``); ``OFF_FRONTIER`` (negative) edges stay negative,
+    so a state id ``< 0`` always means "host path".  The numpy mirrors
+    ``mask_host`` (``uint32``) and ``trans_host`` serve the scheduler's
+    per-token bookkeeping without device readbacks.  Built once by
+    :meth:`ServingEngine.build_device_tables`; immutable afterwards."""
+
+    def __init__(self, tables: Dict[str, DeviceGrammarTable], device):
+        names = sorted(tables)
+        self.tables = {n: tables[n] for n in names}
+        self.offsets: Dict[str, int] = {}
+        masks, trans = [], []
+        off = 0
+        for n in names:
+            t = tables[n]
+            self.offsets[n] = off
+            masks.append(t.mask_table)
+            tr = t.trans.astype(np.int32, copy=True)
+            tr[tr >= 0] += off          # remap edges into the concat range
+            trans.append(tr)
+            off += t.n_states
+        self.n_states = off
+        self.mask_host = np.concatenate(masks, axis=0)
+        self.trans_host = np.concatenate(trans, axis=0)
+        # copies: the device tables never alias the host mirrors
+        self.mask_dev = torch.tensor(self.mask_host.view(np.int32),
+                                     device=device)
+        self.trans_dev = torch.tensor(self.trans_host, device=device)
+
+    @property
+    def n_bytes(self) -> int:
+        return int(self.mask_host.nbytes + self.trans_host.nbytes)
+
+    def sid_for(self, name: str, checker) -> int:
+        """Global state id of ``checker``'s current state under grammar
+        ``name``, or ``OFF_FRONTIER`` when the grammar has no table or the
+        state is outside the certified frontier."""
+        off = self.offsets.get(name)
+        if off is None:
+            return OFF_FRONTIER
+        sid = self.tables[name].sid_for(checker)
+        return sid + off if sid >= 0 else OFF_FRONTIER
+
+
 class ServingEngine:
     def __init__(self, model: Model, params, tok: BPETokenizer,
                  grammar: Optional[Grammar] = None,
@@ -118,6 +178,7 @@ class ServingEngine:
                  max_len: int = 1024,
                  analysis_policy: str = "off",
                  max_adhoc_grammars: int = 32,
+                 device_tables: bool = False,
                  device="cuda"):
         self.device = resolve_device(device)
         self.model = model
@@ -129,6 +190,13 @@ class ServingEngine:
         # registration-time static analysis: off | warn | strict
         self.analysis_policy = analysis_policy
         self.analysis_reports: Dict[str, AnalysisReport] = {}
+        # device grammar tables: precompute() builds and uploads one for
+        # every grammar whose certificate is clean; the others stay on the
+        # host path (correctness never depends on certification, only the
+        # host syncs a token do)
+        self.enable_device_tables = device_tables
+        self.device_tables: Dict[str, DeviceGrammarTable] = {}
+        self._device_table_set: Optional[DeviceTableSet] = None
         self._grammar_refs: Dict[str, int] = {}
         self._adhoc_order: List[str] = []
         self.max_adhoc_grammars = max_adhoc_grammars
@@ -284,7 +352,56 @@ class ServingEngine:
             stats = tc.precompute()
             out["positions"] += stats["positions"]
             out["seconds"] += stats["seconds"]
+        if self.enable_device_tables:
+            out["device_table_seconds"] = self.build_device_tables()
         return out
+
+    def build_device_tables(self) -> float:
+        """Build a :class:`DeviceGrammarTable` for every registered grammar
+        whose closure certificate is clean (finite, no merge conflicts, no
+        hypothesis truncations, an ``ok()`` report); dirty grammars stay
+        host-only.  A grammar with a stored report is judged by it and
+        never re-analysed behind its back, so a downgraded certificate
+        keeps the grammar off the device path; a grammar without one is
+        analysed here with ``emit_device_table=True`` on its shared
+        TreeCache.  Returns the seconds spent analysing."""
+        spent = 0.0
+        for name, (grammar, tc) in list(self.registry.items()):
+            if tc is None or name in self.device_tables:
+                continue
+            report = self.analysis_reports.get(name)
+            if report is None:
+                report = analyze(grammar, list(self.tok.vocab),
+                                 self.tok.eos_id, name=name,
+                                 tree_cache=tc, emit_device_table=True)
+                self.analysis_reports[name] = report
+                spent += report.analysis_time_s
+            elif report.device_table is None:
+                # a stored report's certificate stands: dirty -> skip
+                # without re-analysis; clean but analysed without the
+                # table -> analyse again with it
+                if (not report.closure.finite or report.n_mask_conflicts
+                        or report.n_hyp_truncations or not report.ok()):
+                    continue
+                report = analyze(grammar, list(self.tok.vocab),
+                                 self.tok.eos_id, name=name,
+                                 tree_cache=tc, emit_device_table=True)
+                self.analysis_reports[name] = report
+                spent += report.analysis_time_s
+            if report.device_table is not None and report.ok():
+                self.device_tables[name] = report.device_table
+                tc.device_table = report.device_table
+                self._device_table_set = None      # rebuilt lazily
+        return spent
+
+    @property
+    def device_table_set(self) -> Optional[DeviceTableSet]:
+        """The merged upload of every certified grammar (None until
+        :meth:`build_device_tables` has certified one)."""
+        if self._device_table_set is None and self.device_tables:
+            self._device_table_set = DeviceTableSet(self.device_tables,
+                                                    self.device)
+        return self._device_table_set
 
     # -- request / checker factory -----------------------------------------------
 
@@ -626,6 +743,8 @@ class ServingEngine:
                        default_deadline_s: Optional[float] = None,
                        fault_injector=None,
                        debug_invariants: bool = False,
+                       device_loop: bool = False,
+                       sync_n: int = 8,
                        journal=None,
                        supervisor=None) -> List[GenerationResult]:
         """Serve ``requests`` through the continuous-batching scheduler.
@@ -643,7 +762,14 @@ class ServingEngine:
         ``DecodeParams.deadline_s``; ``fault_injector``,
         ``debug_invariants``, ``journal`` (see :meth:`restore`) and
         ``supervisor`` as there.  Every request gets a result; a non-ok
-        one carries its ``status`` and ``error``."""
+        one carries its ``status`` and ``error``.
+
+        ``device_loop=True`` runs rows whose grammar carries a clean device
+        table through the scheduler's fused block (build the tables first:
+        ``ServingEngine(..., device_tables=True)`` and :meth:`precompute`);
+        ``sync_n`` is the number of decode steps a block fuses per host
+        sync.  Other rows decode on the host path, token for token as with
+        ``device_loop=False``."""
         from repro_torch.serving.scheduler import ContinuousBatchingScheduler
         cap = min(len(requests), max_batch) if max_batch else len(requests)
         kwargs = {}
@@ -659,6 +785,7 @@ class ServingEngine:
             default_deadline_s=default_deadline_s,
             fault_injector=fault_injector,
             debug_invariants=debug_invariants,
+            device_loop=device_loop, sync_n=sync_n,
             journal=journal, supervisor=supervisor, **kwargs)
         sessions = [sched.submit(r) for r in requests]
         sched.run()

@@ -57,11 +57,23 @@ Per tick:
    tick's committed tokens are journaled, written and fsynced at the tick
    boundary only; ``adopt`` rebuilds a journaled request on restart, and
    re-admission re-prefills its validated prefix, so greedy output is
-   bitwise equal to an uninterrupted run.
+   bitwise equal to an uninterrupted run;
+ - the device-resident loop (``device_loop``, with the engine's device
+   grammar tables): a tick whose every resident row is certified, greedy
+   and not speculative runs up to ``sync_n`` decode steps in one fused
+   block (``serving/fused.py``) -- mask gather from the table, the masked
+   argmax kernel, the table's state advance, the forward -- and reads the
+   host once a block; on the card the block is one CUDA graph replay.
+   The host replays the block's tokens through the concrete checkers
+   (``_resync_row``), so statuses and outputs equal the per-token path's.
+   Mixed ticks take the per-token path, where certified rows still gather
+   their mask from the table.  Its fault sites are ``device_timeout``
+   before dispatch, ``device_error`` at the block's readback,
+   ``table_corrupt`` in the mask-row audit and ``decode_nan`` planned for
+   the whole block, and level 0 of the supervisor's ladder is this path.
 
 Per-request outputs match ``ServingEngine.generate`` token for token.
-Not ported yet (ROADMAP Queue 1): the device-resident loop and its fault
-sites, and the prefix cache.
+Not ported yet (ROADMAP Queue 1): the prefix cache.
 """
 from __future__ import annotations
 
@@ -74,12 +86,16 @@ import numpy as np
 import torch
 
 from repro_torch.core import bitmask
+from repro_torch.core.analysis import OFF_FRONTIER
+from repro_torch.core.domino import DominoDecoder
 from repro_torch.kernels.decode_attention import kernel as attn_kernel
 from repro_torch.kernels.masked_sample import kernel as mask_kernel
-from repro_torch.kernels.masked_sample.ops import masked_argmax
+from repro_torch.kernels.masked_sample.ops import (masked_argmax,
+                                                   masked_sample_packed)
 from repro_torch.models import kvcache
 from repro_torch.serving.faults import (FaultInjector, InjectedFault,
                                         InvariantViolation, check_invariants)
+from repro_torch.serving.fused import FusedBlock, GraphCaptureError
 from repro_torch.serving.journal import JournalEntry, TokenJournal
 from repro_torch.serving.request import (ConstraintSpec, DecodeParams,
                                          Request, select_token)
@@ -201,6 +217,13 @@ def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def _upload(arr: np.ndarray, dev) -> torch.Tensor:
+    """``arr`` on ``dev`` by a copy that does not synchronize the host (it
+    is queued on the current stream).  On the CPU the tensor shares
+    ``arr``'s memory, so pass an array nothing writes afterwards."""
+    return torch.from_numpy(arr).to(dev, non_blocking=True)
+
+
 class ContinuousBatchingScheduler:
     """Admits requests into a fixed-capacity constrained decode batch.
 
@@ -223,6 +246,13 @@ class ContinuousBatchingScheduler:
     ``FaultInjector``, ``debug_invariants`` audits every tick boundary,
     ``journal`` a ``TokenJournal`` (see ``adopt``) and ``supervisor`` a
     ``DegradationSupervisor``.
+
+    ``device_loop`` runs ticks whose every resident row is certified
+    (DOMINO k=inf on a cleanly certified grammar with an uploaded device
+    table, greedy, not speculative) as fused blocks of up to ``sync_n``
+    steps with one host sync a block.  Admission, cancellation, deadlines
+    and EOS bookkeeping then happen at block boundaries, so ``sync_n``
+    bounds how stale they can go.
     """
 
     def __init__(self, engine, capacity: int = 4,
@@ -233,6 +263,7 @@ class ContinuousBatchingScheduler:
                  default_deadline_s: Optional[float] = None,
                  fault_injector: Optional[FaultInjector] = None,
                  debug_invariants: bool = False,
+                 device_loop: bool = False, sync_n: int = 8,
                  journal: Optional[TokenJournal] = None,
                  supervisor: Optional[DegradationSupervisor] = None):
         self.eng = engine
@@ -276,6 +307,10 @@ class ContinuousBatchingScheduler:
                 self.capacity, engine.max_len, device=self.dev)
         self.cache["len"] = torch.zeros((self.capacity,), dtype=torch.int32,
                                         device=self.dev)   # ragged
+        # host mirror of cache["len"]: the host knows every change to it
+        # (admissions, forwards, rollbacks, fused blocks, resets), so page
+        # bookkeeping never reads the lengths back
+        self._len_host = np.zeros(self.capacity, np.int64)
         vpad = engine.model.padded_vocab
         self._logits = torch.zeros((self.capacity, vpad),
                                    dtype=torch.float32, device=self.dev)
@@ -296,7 +331,40 @@ class ContinuousBatchingScheduler:
         self.n_fwd = 0                 # forwards (admissions + decodes)
         self.n_decode = 0              # batched decode forwards
         self.n_preempt = 0             # paged recompute preemptions
-        self.n_host_syncs = 0          # per-tick selection readbacks
+        # decode-path host syncs: one a per-token selection tick, one a
+        # fused block
+        self.n_host_syncs = 0
+        # device-resident loop: with ``device_loop`` and uploaded device
+        # tables, ticks whose every resident row is certified run sync_n
+        # steps in one fused block; mixed ticks take the per-token path,
+        # where certified rows still gather their mask from the table
+        self.device_loop = bool(device_loop)
+        self.sync_n = max(1, int(sync_n))
+        self._dts = engine.device_table_set if self.device_loop else None
+        # per-slot device-table state id (OFF_FRONTIER: host path): set at
+        # admission, advanced through the host transition table at every
+        # commit, read back after a fused block, cleared on finish/preempt
+        self._dev_state = np.full(self.capacity, OFF_FRONTIER, np.int64)
+        # tokens since the row's table state was last audited against the
+        # concrete checker's mask: the abstract-key quotient of a
+        # context-free grammar can drift off the concrete state (a quotient
+        # escape), so every sync_n tokens and at every block boundary the
+        # table row is compared with the checker's and an escaped row
+        # demotes to the exact host path
+        self._dev_age = np.zeros(self.capacity, np.int64)
+        self.n_quotient_escapes = 0    # audit demotions
+        self.n_table_rejects = 0       # table picks the checker refused
+        # slot -> state id of rows whose mask the device gathers this tick
+        self._dev_gather = np.full(self.capacity, OFF_FRONTIER, np.int64)
+        # decode_nan plan of one fused block, consulted up front
+        self._nan_plan = np.zeros((self.capacity, self.sync_n), bool)
+        self._fused: Optional[FusedBlock] = None   # built on the 1st block
+        self.n_device_tokens = 0       # tokens committed by fused blocks
+        self.n_deadline_clamps = 0     # blocks clamped by a deadline
+        self._last_block_steps = 0     # steps the last fused block ran
+        # committed tokens/s EWMA over fused blocks: prices a resident
+        # deadline into a block-step cap (0.0 = unprimed)
+        self._tok_s_ema = 0.0
         # pre-verify recurrent state of every row, allocated on the first
         # speculative tick of a refeed architecture and reused after
         self._snap = None
@@ -372,6 +440,10 @@ class ContinuousBatchingScheduler:
                            else self.journal.n_syncs),
             paged=self.paged, n_fwd=self.n_fwd, n_decode=self.n_decode,
             n_preempt=self.n_preempt, n_host_syncs=self.n_host_syncs,
+            n_device_tokens=self.n_device_tokens,
+            n_quotient_escapes=self.n_quotient_escapes,
+            n_table_rejects=self.n_table_rejects,
+            n_deadline_clamps=self.n_deadline_clamps,
             premask_hits=self.premask_hits,
             premask_skips=self.premask_skips,
             mask_cache_hits=self.mask_cache_hits,
@@ -391,6 +463,8 @@ class ContinuousBatchingScheduler:
             width = self._verify_width()
             if width > 1:
                 self._spec_step(width)
+            elif self._device_ready():
+                self._device_step()
             else:
                 self._plain_step()
         self._reset_vacant_lens()
@@ -538,12 +612,18 @@ class ContinuousBatchingScheduler:
                 self._fail(sess, f"prefill failed: {e!r}")
                 continue
             self._logits[slot] = logits[0, -1].to(torch.float32)
+            self._len_host[slot] = len(ids)
             sess.model_time += time.perf_counter() - t0
             sess.n_fwd += 1
             self.n_fwd += 1
             sess.slot = slot
             sess.t_admit = time.perf_counter()
             self.slots[slot] = sess
+            # device-table tracking starts (or resumes after a preemption:
+            # the checker already advanced past the generated prefix) at
+            # the checker's current abstract state
+            self._dev_state[slot] = self._sid_for(sess)
+            self._dev_age[slot] = 0
             if self.journal is not None:
                 self.journal.append({"kind": "admit", "rid": sess.rid,
                                      "slot": slot, "cached_pages": 0,
@@ -558,9 +638,10 @@ class ContinuousBatchingScheduler:
         row's len)."""
         if all(s is not None for s in self.slots):
             return
-        occ = torch.tensor([0 if s is None else 1 for s in self.slots],
-                           dtype=torch.int32, device=self.dev)
-        self.cache["len"] = self.cache["len"] * occ
+        occ = np.asarray([0 if s is None else 1 for s in self.slots],
+                         np.int32)
+        self._len_host *= occ
+        self.cache["len"] = self.cache["len"] * _upload(occ, self.dev)
 
     def _finish(self, sess: Session, status: Optional[str] = None,
                 error: Optional[str] = None) -> None:
@@ -581,6 +662,7 @@ class ContinuousBatchingScheduler:
             self._jmark.pop(sess.rid, None)
         if sess.slot >= 0:
             self._premask.pop(sess.slot, None)
+            self._dev_state[sess.slot] = OFF_FRONTIER
             if self.paged:
                 self._free_slot_pages(sess.slot)
             self.slots[sess.slot] = None
@@ -695,9 +777,12 @@ class ContinuousBatchingScheduler:
             self._preempt(sess)
         eng = self.eng
         # every reference to the old cache goes before the new one is
-        # allocated (the refeed snapshot aliases its K/V), so a reset never
-        # holds two caches at once
+        # allocated (the refeed snapshot aliases its K/V, the fused block's
+        # graph holds its addresses), so a reset never holds two caches at
+        # once; the next fused block records its graph again
         self.cache = self._logits = self._snap = None
+        if self._fused is not None:
+            self._fused.drop_graph()
         attn_kernel.drop_scratch()
         mask_kernel.drop_scratch()
         if self.paged:
@@ -712,6 +797,7 @@ class ContinuousBatchingScheduler:
                                         device=self.dev)
         self._logits = torch.zeros((self.capacity, eng.model.padded_vocab),
                                    dtype=torch.float32, device=self.dev)
+        self._len_host[:] = 0
         self._premask.clear()
 
     # -- restart recovery -------------------------------------------------------
@@ -801,6 +887,7 @@ class ContinuousBatchingScheduler:
         prompt + generated prefix and selection resumes where it left."""
         slot = sess.slot
         self._premask.pop(slot, None)
+        self._dev_state[slot] = OFF_FRONTIER
         if self.paged:
             # (the reference frees unconditionally, which fails an engine
             # reset of dense rows: they hold no pages)
@@ -819,7 +906,7 @@ class ContinuousBatchingScheduler:
         everyone, preempt youngest-first until it can."""
         if not self.paged:
             return
-        lens = self.cache["len"].cpu().numpy()
+        lens = self._len_host
         while True:
             need: Dict[int, int] = {}
             for slot, sess in enumerate(self.slots):
@@ -858,7 +945,7 @@ class ContinuousBatchingScheduler:
         to the pool (the next ``_ensure_pages`` allocates on demand)."""
         if not self.paged:
             return
-        lens = self.cache["len"].cpu().numpy()
+        lens = self._len_host
         for slot, sess in enumerate(self.slots):
             if sess is None:
                 continue
@@ -871,10 +958,12 @@ class ContinuousBatchingScheduler:
                 self._pages_dirty = True
 
     def _sync_pages(self) -> None:
-        """Upload the host block table if the allocator moved pages."""
+        """Upload the host block table if the allocator moved pages, into
+        the cache's own table tensor (the fused block's graph reads it
+        there)."""
         if self.paged and self._pages_dirty:
-            self.cache["pages"] = torch.tensor(self._page_tbl,
-                                               device=self.dev)
+            self.cache["pages"].copy_(torch.from_numpy(self._page_tbl),
+                                      non_blocking=True)
             self._pages_dirty = False
 
     # -- mask pipeline ----------------------------------------------------------
@@ -908,6 +997,8 @@ class ContinuousBatchingScheduler:
             if sess is None or sess.checker is None \
                     or slot in self._premask:
                 continue
+            if self.device_loop and self._dev_state[slot] >= 0:
+                continue   # the mask comes from the device table
             if sess.opportunistic and sess.temperature <= 0.0 \
                     and not self._opp_intervened[slot]:
                 self.premask_skips += 1
@@ -952,6 +1043,7 @@ class ContinuousBatchingScheduler:
         raw, finite = got
         self.n_host_syncs += 1
         masks = self._mask_words
+        self._dev_gather[:] = OFF_FRONTIER
         row_bits: Dict[int, Optional[np.ndarray]] = {}
         for slot, sess in enumerate(self.slots):
             if sess is None:
@@ -961,6 +1053,15 @@ class ContinuousBatchingScheduler:
                 # quarantine before any selection reads the row
                 self._fail(sess, "non-finite logits from device step")
                 masks[slot] = self._sentinel_row
+                continue
+            if self.device_loop and self._dev_state[slot] >= 0:
+                # certified row: its mask is the table row, gathered on the
+                # device for selection (the host mirror serves sampling);
+                # no checker walk, no opportunistic probe, no dead-end
+                # check (a clean certificate has no trap states)
+                sid = int(self._dev_state[slot])
+                self._dev_gather[slot] = sid
+                row_bits[slot] = self._dts.mask_host[sid]
                 continue
             ch = sess.checker
             if ch is None:
@@ -1000,13 +1101,36 @@ class ContinuousBatchingScheduler:
             return {}
         toks = np.zeros(self.capacity, np.int64)
         greedy = [s for s in occupied if self.slots[s].temperature <= 0.0]
-        if greedy:
-            # packed words cross as int32 (the kernel reads them as uint32)
+        sampled = [s for s in occupied if s not in greedy]
+        on_device = bool(sampled) and self.device_loop and self.sup.level < 2
+        if greedy or on_device:
+            # packed words cross as int32 (the kernel reads them as
+            # uint32); certified rows take their table row, gathered on
+            # the device
             words = torch.tensor(masks.view(np.int32), device=self.dev)
+            if self.device_loop and bool((self._dev_gather >= 0).any()):
+                words = self._gather_masks(words)
+        if greedy:
             idx, _ = masked_argmax(self._logits[:, :v], words)
             toks[greedy] = idx.cpu().numpy()[greedy]
-        sampled = [s for s in occupied if s not in greedy]
-        if sampled:
+        if on_device:
+            # the device sampler: Gumbel-max over the packed legal set with
+            # per-row temperature and per-row counter-based noise keyed on
+            # (seed, draw index), so a row's stream never depends on its
+            # batch; equal to the host path below in distribution only
+            temps = np.zeros(self.capacity, np.float32)
+            keys = np.zeros((self.capacity, 2), np.int64)
+            for slot in sampled:
+                sess = self.slots[slot]
+                temps[slot] = sess.temperature
+                keys[slot] = (sess.decode.seed, sess.n_draws)
+                sess.n_draws += 1
+            sel = masked_sample_packed(
+                self._logits[:, :v], words, _upload(temps, self.dev),
+                _upload(keys, self.dev)).cpu().numpy()
+            for slot in sampled:
+                toks[slot] = sel[slot]
+        elif sampled:
             lg_host = self._logits[:, :v].cpu().numpy()
             for slot in sampled:
                 sess = self.slots[slot]
@@ -1035,10 +1159,21 @@ class ContinuousBatchingScheduler:
             if sess is None or sess.slot != slot:
                 continue     # evicted between selection and commit
             ch = sess.checker
+            # a tracked row selected from the table's mask row, so a
+            # quotient escape can offer a token the checker refuses;
+            # advance() then leaves the state unchanged and the row is
+            # recompute-preempted with its validated prefix (it re-enters
+            # through _sid_for's entry audit).  Untracked rows selected
+            # from the checker's own mask and ignore the return.
+            tracked = self._dev_state[slot] >= 0
             try:
                 if tok == sess.eos_id:
                     if ch is not None:
-                        ch.advance(tok)
+                        ok = ch.advance(tok)
+                        if tracked and not ok:
+                            self.n_table_rejects += 1
+                            self._preempt(sess)
+                            continue
                     sess.finished_eos = True
                     self._finish(sess)
                     continue
@@ -1049,8 +1184,14 @@ class ContinuousBatchingScheduler:
                     if self._inject("advance_error", sess):
                         raise InjectedFault(
                             f"injected advance failure (rid={sess.rid})")
-                    ch.advance(tok)
+                    ok = ch.advance(tok)
                     self._premask.pop(slot, None)  # state moved: stale
+                    if tracked:
+                        if not ok:
+                            self.n_table_rejects += 1
+                            self._preempt(sess)
+                            continue
+                        self._advance_sid(slot, sess, tok)
             except Exception as e:   # quarantined: evict THIS row only
                 self._fail(sess, f"checker failed during advance: {e!r}")
                 continue
@@ -1082,6 +1223,7 @@ class ContinuousBatchingScheduler:
             for b_sess, b_dt in built:
                 b_sess.mask_overlap += b_dt
         dt = time.perf_counter() - t0 - (0.0 if hidden else m_total)
+        self._len_host += feed.shape[1]      # every row's len advanced
         self.n_fwd += 1
         self.n_decode += 1
         for sess in self.slots:
@@ -1103,6 +1245,289 @@ class ContinuousBatchingScheduler:
                                            device=self.dev))
         self._logits = lg[:, -1].to(torch.float32)
         self._inject_nan_rows("decode_nan")
+
+    # -- device-resident fused decode loop -------------------------------------
+
+    def _gather_masks(self, staged: torch.Tensor) -> torch.Tensor:
+        """Rows tracked on the device table take their table mask row;
+        the others keep the staged packed row."""
+        sid = _upload(self._dev_gather.copy(), self.dev)
+        tab = self._dts.mask_dev[torch.clamp(sid, min=0)]
+        return torch.where((sid >= 0)[:, None], tab, staged)
+
+    def _sid_for(self, sess: Session) -> int:
+        """Global device-table state id of this session's current checker
+        state, or OFF_FRONTIER when the row cannot be tracked: no uploaded
+        tables, no constraint spec, a checker that is not exactly a
+        DominoDecoder (healed, online or naive checkers own semantics the
+        table was not built from), bounded lookahead, a custom EOS id, an
+        uncertified grammar, or a state outside the certified frontier."""
+        dts = self._dts
+        if dts is None or sess.checker is None or sess.request is None:
+            return OFF_FRONTIER
+        ch = sess.checker
+        if type(ch) is not DominoDecoder or not ch.device_trackable:
+            return OFF_FRONTIER
+        gname = getattr(sess.request.constraint, "grammar", None)
+        if not isinstance(gname, str) or gname not in dts.offsets:
+            return OFF_FRONTIER
+        if sess.eos_id != dts.tables[gname].eos_id:
+            return OFF_FRONTIER    # table EOS edges assume the engine EOS
+        sid = dts.sid_for(gname, ch)
+        if sid < 0:
+            return OFF_FRONTIER
+        # entry audit: two concrete states can share an abstract key and
+        # disagree on their mask (a quotient escape); a fresh checker's
+        # mask_bits() hits the shared memo, so this is a compare
+        t0 = time.perf_counter()
+        bits = ch.mask_bits()
+        sess.mask_time += time.perf_counter() - t0
+        if not np.array_equal(dts.mask_host[sid], bits):
+            self.n_quotient_escapes += 1
+            return OFF_FRONTIER
+        return sid
+
+    def _advance_sid(self, slot: int, sess: Session, tok: int) -> None:
+        """Mirror a checker advance through the host transition table,
+        auditing the landing state's mask row against the concrete checker
+        every ``sync_n`` advances."""
+        sid = int(self._dts.trans_host[self._dev_state[slot], tok])
+        if sid < 0:
+            self._dev_state[slot] = OFF_FRONTIER
+            return
+        self._dev_age[slot] += 1
+        if self._dev_age[slot] < self.sync_n:
+            self._dev_state[slot] = sid
+            return
+        self._dev_state[slot] = self._audit_sid(slot, sess, sid)
+
+    def _audit_sid(self, slot: int, sess: Session, sid: int) -> int:
+        """Compare the table's mask row with the concrete checker's packed
+        mask: equal keeps the row on the table; different (a quotient
+        escape, or an injected ``table_corrupt``) demotes it to the host
+        path, keeps the audit's mask as its premask and journals a
+        ``demote`` record."""
+        t0 = time.perf_counter()
+        bits = sess.checker.mask_bits()
+        sess.mask_time += time.perf_counter() - t0
+        self._dev_age[slot] = 0
+        corrupt = self._inject("table_corrupt", sess)
+        if not corrupt and np.array_equal(self._dts.mask_host[sid], bits):
+            return sid
+        self.n_quotient_escapes += 1
+        self._premask[slot] = bits
+        if self.journal is not None:
+            self.journal.append({
+                "kind": "demote", "rid": sess.rid,
+                "reason": ("injected table corruption" if corrupt
+                           else "mask-row audit mismatch")})
+        return OFF_FRONTIER
+
+    def _device_ready(self) -> bool:
+        """True when every resident row can commit tokens without a host
+        round trip: greedy, not speculative, constrained by a checker whose
+        state sits in an uploaded device table, with room for a whole
+        block.  All or nothing: one host-path row needs a host sync a token
+        anyway, so mixed ticks take the per-token path."""
+        if not self.device_loop or self._dts is None or self.sync_n < 2 \
+                or self.eng._needs_refeed or self.sup.level > 0:
+            return False     # degraded: the ladder owns the path choice
+        ready = False
+        for slot, sess in enumerate(self.slots):
+            if sess is None:
+                continue
+            if sess.checker is None or sess.speculator is not None \
+                    or sess.temperature > 0.0 \
+                    or self._dev_state[slot] < 0:
+                return False
+            ready = True
+        if not ready:
+            return False
+        # a block writes up to sync_n new positions a row; near max_len
+        # the per-token path stops at the exact boundary instead
+        return int(self._len_host.max()) + self.sync_n <= self.eng.max_len
+
+    def _deadline_cap(self) -> int:
+        """The next block's step cap: the nearest resident deadline priced
+        through the measured tokens/s EWMA (at least 1 step, so lifecycle
+        checks still meet a boundary); ``sync_n`` while the EWMA is
+        unprimed."""
+        n_cap = self.sync_n
+        if self._tok_s_ema <= 0.0:
+            return n_cap
+        now = time.perf_counter()
+        for sess in self.slots:
+            if sess is None:
+                continue
+            deadline = sess.deadline_s
+            if deadline is None:
+                deadline = self.default_deadline_s
+            if deadline is None:
+                continue
+            left = deadline - (now - sess.t_submit)
+            n_cap = min(n_cap, max(1, int(left * self._tok_s_ema)))
+        if n_cap < self.sync_n:
+            self.n_deadline_clamps += 1
+        return n_cap
+
+    def _device_step(self) -> None:
+        """One fused tick: up to ``sync_n`` decode steps in one block (one
+        graph replay on the card), one readback of everything the host
+        needs, then every committed token replayed through the concrete
+        checkers (``_resync_row``), so host state, statuses and results are
+        what the per-token path leaves for the same tokens."""
+        eng = self.eng
+        # reserve the whole block's cache growth first (may preempt:
+        # preempted rows leave the table, the others stay eligible)
+        self._ensure_pages(self.sync_n)
+        if not any(s is not None for s in self.slots):
+            return
+        self._sync_pages()
+        if self._fused is None:
+            self._fused = FusedBlock(eng, self.capacity, self.sync_n)
+        active0 = np.asarray([s is not None for s in self.slots], bool)
+        # the decode_nan plan of the whole block, consulted up front in the
+        # order sync_n host ticks would consult it
+        self._nan_plan[:] = False
+        if self.injector is not None:
+            for j in range(self.sync_n):
+                for slot, sess in enumerate(self.slots):
+                    if sess is not None:
+                        self._nan_plan[slot, j] = self._inject(
+                            "decode_nan", sess)
+        n_cap = self._deadline_cap()
+        # device_timeout is consulted before dispatch (nothing has run, so
+        # the guard's retry is a no-op); a real failure of the block below
+        # resets the engine instead of running it again
+        ok, err = self.sup.guard(
+            "fused_dispatch", lambda: None,
+            inject=lambda: self._inject("device_timeout"))
+        if not ok:
+            self.sup.degrade("fused_dispatch", err)
+            return           # nothing ran; the next tick takes the host path
+        self._fused.stage(
+            state=np.where(active0, self._dev_state, OFF_FRONTIER),
+            active=active0,
+            rem=[0 if s is None else s.budget for s in self.slots],
+            eos=[-1 if s is None else s.eos_id for s in self.slots],
+            nan_plan=self._nan_plan, n_cap=n_cap)
+        t0 = time.perf_counter()
+        try:
+            out = self._fused.run(self.cache, self._logits, self._dts)
+        except GraphCaptureError:
+            raise            # a block the card cannot record is a bug
+        except Exception as e:
+            # a runtime error escaped the block (its cache writes are
+            # suspect): reset the engine (residents recompute-preempt,
+            # outputs unchanged) and step down the ladder
+            self._engine_reset(f"fused block failed: {e!r}")
+            self.sup.degrade("fused_block", e)
+            return
+        dt = time.perf_counter() - t0
+        self._logits = out.logits
+        self.cache["len"] = out.lens
+        # the block's one host sync: tokens, states, counts, faults and
+        # the step count came back in one copy
+        self.n_host_syncs += 1
+        if self._inject("device_error"):
+            # a simulated corrupt readback: nothing of the block is
+            # trusted and nothing was committed or journaled, so the
+            # recompute-preemption of a reset keeps outputs exact
+            self._engine_reset("device_error at fused-block readback")
+            self.sup.degrade("fused_readback",
+                             RuntimeError("injected device_error at "
+                                          "fused-block readback"))
+            return
+        if self.sup.block_watchdog_s is not None \
+                and dt > self.sup.block_watchdog_s:
+            # the block finished, too slowly: its results stand, but the
+            # device is suspect
+            self.sup.n_watchdog_trips += 1
+            self.sup.degrade(
+                "fused_block_watchdog",
+                TimeoutError(f"fused block took {dt:.3f}s > watchdog "
+                             f"{self.sup.block_watchdog_s:g}s"))
+        steps_run = out.steps
+        self._last_block_steps = steps_run
+        self._len_host += out.n_fed
+        fed_total = int(out.n_fed.sum())
+        if fed_total and dt > 0:
+            # committed tokens/s EWMA, alpha 0.3: prices the next block's
+            # deadline clamp
+            rate = fed_total / dt
+            self._tok_s_ema = (rate if self._tok_s_ema == 0.0
+                               else 0.7 * self._tok_s_ema + 0.3 * rate)
+        self.n_fwd += steps_run
+        self.n_decode += steps_run
+        for slot, sess in enumerate(list(self.slots)):
+            if sess is None:
+                continue
+            sess.n_fwd += int(out.n_fed[slot])
+            sess.model_time += dt
+            self._resync_row(slot, sess, out.toks[slot], out.raws[slot],
+                             bool(out.fault[slot]), int(out.state[slot]),
+                             steps_run)
+        self._shrink_pages()   # rows that stopped early rewound their len
+
+    def _resync_row(self, slot: int, sess: Session, toks_row, raws_row,
+                    faulted: bool, state_out: int,
+                    steps_run: int) -> None:
+        """Replay one row's block of device-committed tokens through its
+        concrete checker, as ``_commit_first`` would token by token: a
+        checker exception fails the row, a checker rejection (a quotient
+        escape) recompute-preempts it with its validated prefix, and a
+        device fault flag ends it with the host path's ``internal_error``.
+        """
+        if sess.cancel_requested:
+            # a cancel that arrived while the block ran: none of the
+            # block's tokens commit for this row, and the next tick's reap
+            # ends it ``cancelled``
+            return
+        ch = sess.checker
+        for j in range(steps_run):
+            tok = int(toks_row[j])
+            if tok < 0:
+                break                  # the row went inactive at step j
+            sess.n_int += int(tok != int(raws_row[j]))
+            try:
+                if tok == sess.eos_id:
+                    if ch.advance(tok):
+                        sess.finished_eos = True
+                        self._finish(sess)
+                    else:
+                        # the table offered EOS where the checker forbids
+                        # it; state unchanged, recompute-preempt
+                        self.n_table_rejects += 1
+                        self._preempt(sess)
+                    return
+                if self._inject("advance_error", sess):
+                    raise InjectedFault(
+                        f"injected advance failure (rid={sess.rid})")
+                ok = ch.advance(tok)
+            except Exception as e:   # quarantined: evict THIS row only
+                self._fail(sess, f"checker failed during advance: {e!r}")
+                return
+            self._premask.pop(slot, None)   # state moved: mask stale
+            if not ok:
+                self.n_table_rejects += 1
+                self._preempt(sess)
+                return
+            sess.out_ids.append(tok)
+            sess.budget -= 1
+            sess.n_device_tokens += 1
+            self.n_device_tokens += 1
+            if sess.budget <= 0:
+                self._finish(sess)
+                return
+        if faulted:
+            self._fail(sess, "non-finite logits from device step")
+            return
+        if state_out < 0:
+            self._dev_state[slot] = OFF_FRONTIER
+            return
+        # the block boundary is an audit point: up to sync_n table
+        # transitions ran without a concrete checker
+        self._dev_state[slot] = self._audit_sid(slot, sess, state_out)
 
     # -- speculative decode tick (paper section 3.6) ------------------------------
 
@@ -1177,6 +1602,7 @@ class ContinuousBatchingScheduler:
         # each row's length is the whole rollback
         acc = torch.tensor(accepted_vec, device=self.dev)
         self.cache["len"] = snap_len + 1 + acc.to(torch.int32)
+        self._len_host += 1 + accepted_vec - width
         self._logits = lg_dev[torch.arange(self.capacity, device=self.dev),
                               acc].to(torch.float32)
         self._shrink_pages()
@@ -1277,6 +1703,9 @@ class ContinuousBatchingScheduler:
             rows = _gather_rows(snapshot, idx)
             lg_re, rows = eng._decode(eng.params, rows, feed)
             _scatter_rows(self.cache, rows, idx)
+            # the verify forward left these rows at snapshot + width; the
+            # refeed's rows stand at snapshot + 1 + a
+            self._len_host[slots] -= width - 1 - a
             self._logits[idx] = lg_re[:, -1].to(torch.float32)
             # wait, so model_time measures execution, not dispatch
             if lg_re.is_cuda:

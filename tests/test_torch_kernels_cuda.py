@@ -861,3 +861,208 @@ def test_launches_after_engine_reset_equal_launches_before(cuda_device,
                        attn)
     again = masked_argmax(lg, bits)
     assert torch.equal(again[0], sel[0]) and torch.equal(again[1], sel[1])
+
+
+# -- CUDA graphs: the fused decode block's replays ---------------------------
+
+
+def _graph_replays_eager(cuda_device, fn, wrapper, mutate):
+    """``fn`` recorded as a graph replays to the bits of an eager call, on
+    its inputs and again after ``mutate()`` rewrote them in place, and each
+    replay credits ``wrapper`` with the one launch it recorded."""
+    from repro_torch.serving.fused import RecordedGraph
+    want = fn()
+    before = wrapper.launches
+    graph = RecordedGraph(fn, cuda_device)
+    assert wrapper.launches == before + 1          # the warm-up only
+    assert graph.recorded == {wrapper: 1}
+    graph.replay()
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(_leaves(graph.out),
+                                                  _leaves(want)))
+    mutate()
+    want = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(_leaves(graph.out),
+                                                  _leaves(want)))
+
+
+def _leaves(x):
+    return list(x) if isinstance(x, (tuple, list)) else [x]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("paged", [True, False])
+def test_decode_attention_kernel_replays_in_cuda_graph(cuda_device, paged,
+                                                       dtype):
+    """#1 with keys split across blocks (scratch and merge counters of the
+    recording stream), paged and contiguous."""
+    q, kp, vp, _, _, ln, tbl = _long_case("1000", 1, 1, cuda_device)
+    q, kp, vp = (x.to(dtype) for x in (q, kp, vp))
+    if not paged:
+        kp = gather_pages(kp, tbl).contiguous()
+        vp = gather_pages(vp, tbl).contiguous()
+        tbl = None
+    _graph_replays_eager(
+        cuda_device, lambda: decode_attention(q, kp, vp, ln,
+                                              block_tables=tbl),
+        attn_kernel.decode_attention_cuda,
+        lambda: (q.mul_(-0.5), ln.sub_(1)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("paged", [True, False])
+def test_split_decode_attention_kernel_replays_in_cuda_graph(cuda_device,
+                                                             paged, dtype):
+    """#1b at deepseek-v3's width (bf16: keys split, scratch allocated)."""
+    q, q2, lat, rp, ln, tbl = [
+        torch.from_numpy(x).to(cuda_device) for x in split_case(
+            1, seed=97, h=128, r=512, d2=64, lens=SPLIT_LONG_LENS, ps=64,
+            mp=16)]
+    q, q2, lat, rp = (x.to(dtype) for x in (q, q2, lat, rp))
+    if not paged:
+        lat = gather_pages(lat, tbl).contiguous()
+        rp = gather_pages(rp, tbl).contiguous()
+        tbl = None
+    kw = dict(scale=0.07, q2=q2, k2=rp, block_tables=tbl)
+    _graph_replays_eager(
+        cuda_device, lambda: decode_attention(q, lat, lat, ln, **kw),
+        attn_kernel.decode_attention_split_cuda,
+        lambda: (q.mul_(-0.5), q2.mul_(2.0)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,v", [(4, 403), (4, 100352)])
+def test_masked_argmax_kernel_replays_in_cuda_graph(cuda_device, b, v,
+                                                    dtype):
+    """#2 at the serving paths' V=403 (one block a row) and at V=100352
+    (the vocabulary split, the last block merging through counters)."""
+    lg, bits, _ = _argmax_case(cuda_device, b, v, dtype=dtype)
+    gen = torch.Generator(cuda_device).manual_seed(1)
+    flip = torch.randperm(bits.numel(), device=cuda_device, generator=gen)
+
+    def mutate():
+        lg.neg_()
+        bits.view(-1)[flip[:bits.numel() // 2]] = -1
+    _graph_replays_eager(cuda_device, lambda: masked_argmax(lg, bits),
+                         mask_kernel.masked_argmax_packed, mutate)
+
+
+def _fused_engine(cuda_device, arch):
+    """A small float32 model on the card with the JSON grammar's device
+    table (the byte-level tokenizer on which it certifies clean)."""
+    from repro_torch.core import grammars
+    from repro_torch.core.sampling import GrammarSampler
+    from repro_torch.serving import EngineConfig, ServingEngine
+    from repro_torch.tokenizer import train_bpe
+    g = grammars.load("json")
+    tok = train_bpe(GrammarSampler(g, seed=7).corpus(80), vocab_size=257)
+    extra = {} if arch == "attn" else dict(
+        family="moe", n_kv_heads=4, group=("moe",),
+        mla=MLAConfig(q_lora_rank=32, kv_lora_rank=16, qk_nope_head_dim=16,
+                      qk_rope_head_dim=8, v_head_dim=16),
+        moe=MoEConfig(n_experts=4, top_k=2, d_ff_expert=64,
+                      n_shared_experts=1, capacity_factor=2.0))
+    cfg = ModelConfig(**dict(dict(
+        arch_id="tf", family="dense", n_layers=2, d_model=64, n_heads=4,
+        n_kv_heads=2, d_ff=128, vocab_size=tok.vocab_size, dtype="float32",
+        max_seq_len=256, use_pallas_kernels=True), **extra))
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(0)
+    model = build_model(cfg)
+    eng = ServingEngine(model, model.init(gen, device=cuda_device), tok, g,
+                        EngineConfig(mode="domino", max_tokens=16),
+                        max_len=256, device_tables=True, device=cuda_device)
+    eng.precompute()
+    assert eng.device_table_set is not None
+    return eng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["attn", "mla_moe"])
+def test_fused_block_replay_matches_eager(cuda_device, arch):
+    """A small model's fused blocks on the card: replayed from one recorded
+    graph, the block is bitwise equal to the same block run eagerly
+    (outputs and every cache leaf); the run's ids equal the host loop's,
+    every replay credits the recorded launches of #1 (or #1b) and #2, and
+    an engine reset drops the graph so the next block records again."""
+    from repro_torch.serving import ContinuousBatchingScheduler
+    from repro_torch.serving.fused import FusedBlock
+    eng = _fused_engine(cuda_device, arch)
+    prompts = ["a: ", "some much longer json prompt here: ", "x",
+               "record -> "]
+    host = ContinuousBatchingScheduler(eng, capacity=2)
+    for p in prompts:
+        host.submit(p)
+    want = host.run()
+    sched = ContinuousBatchingScheduler(eng, capacity=2, device_loop=True,
+                                        sync_n=4)
+    for p in prompts:
+        sched.submit(p)
+    checks = []
+    orig = FusedBlock.launch
+
+    def launch(fb, cache, dts):
+        if fb.graph is not None and not checks:
+            checks.append(fb.replay_matches_eager(cache, dts))
+        else:
+            orig(fb, cache, dts)
+    attn = (attn_kernel.decode_attention_cuda if arch == "attn"
+            else attn_kernel.decode_attention_split_cuda)
+    FusedBlock.launch = launch
+    try:
+        got = sched.run()
+    finally:
+        FusedBlock.launch = orig
+    fb = sched._fused
+    assert sched.sup.n_degrades == 0 and sched.n_engine_resets == 0
+    assert checks == [True]
+    assert [r.token_ids for r in got] == [r.token_ids for r in want]
+    assert sched.n_device_tokens > 0 and fb.n_replays >= 2
+    assert fb.graph.recorded == {attn: 2 * 4,
+                                 mask_kernel.masked_argmax_packed: 4}
+    sched._engine_reset("test")
+    assert fb.graph is None
+    for p in prompts[:2]:
+        sched.submit(p)
+    sched.run()
+    assert fb.n_records == 2
+
+
+@pytest.mark.cuda
+def test_device_sampler_on_card(cuda_device):
+    """The device sampler on the card: legal tokens only, TV distance to
+    the host ``select_token`` under 0.06 over 4000 draws, temperature 0
+    giving the masked-argmax kernel's pick."""
+    from repro_torch.core import bitmask
+    from repro_torch.kernels.masked_sample.ops import masked_sample_packed
+    from repro_torch.serving.request import select_token
+    rng = np.random.default_rng(0)
+    v = 70
+    logits = rng.normal(size=v).astype(np.float32) * 2.0
+    legal = np.zeros(v, bool)
+    legal[rng.choice(v, size=9, replace=False)] = True
+    bits = bitmask.pack_bool(legal).view(np.int32)
+    temp, n = 0.8, 4000
+    keys = torch.tensor(np.stack([np.full(n, 5), np.arange(n)], axis=1),
+                        device=cuda_device)
+    lg = torch.tensor(np.tile(logits, (n, 1)), device=cuda_device)
+    words = torch.tensor(np.tile(bits, (n, 1)), device=cuda_device)
+    dev = masked_sample_packed(lg, words, torch.full(
+        (n,), temp, device=cuda_device), keys).cpu().numpy()
+    assert legal[dev].all()
+    host_rng = np.random.default_rng(5)
+    host = np.asarray([select_token(logits, legal, temp, host_rng)
+                       for _ in range(n)])
+    tv = 0.5 * np.abs(np.bincount(dev, minlength=v)[legal] / n
+                      - np.bincount(host, minlength=v)[legal] / n).sum()
+    assert tv < 0.06, f"TV distance {tv:.3f}"
+    greedy = masked_sample_packed(lg[:4], words[:4],
+                                  torch.zeros(4, device=cuda_device),
+                                  keys[:4])
+    assert torch.equal(greedy, masked_argmax(lg[:4], words[:4])[0])
