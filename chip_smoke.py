@@ -117,7 +117,31 @@ non-zero without the final result line):
     (b) zamba2-1.2b speculative
     on dense rows with a targeted advance_error, a targeted decode_nan
     and a device_error reset.  A fault-free run that degrades, retries,
-    resets or selects through the plain version fails.
+    resets or selects through the plain version fails;
+ 9. the radix prefix cache (copy-on-write shared KV pages, admissions that
+    prefill only their private tail as one decode of width S = the tail's
+    bucket through #1, or #1b): (a) stablelm-1.6b in float32 on the
+    reference serving bench's Zipf-preamble traffic (16 requests over
+    three preambles, json, c and unconstrained rows, 4 tokens each,
+    16-token pages, 160 pages, 4 slots, the invariant audit on), cold then
+    warm through the kernels: ids and statuses equal (a divergence is a
+    bug unless the top-2 legal logit margin where the runs part is below
+    ``MARGIN_NOISE``, printed), at least 90% of the shareable prefill
+    tokens skipped, the pool leak-free after the cache's reset, #1's
+    launches counted with cached prefills as decode forwards of width S;
+    warm through the kernels equal to warm through the plain path; (b)
+    bfloat16 cold, warm, warm, cold (tok/s, admission to first token, a
+    cached prefill's host wall against a full one's) and #1's ``prefix``
+    entry on a mid-run cached prefill; deepseek-v3's part runs inside
+    phase 5's float32 serve (the Zipf trace warm, kernels against plain,
+    warm against cold printed: its MoE routes a bucket's pads) and gives
+    #1b's ``prefix`` entry; (c) the device loop with the cache, float32, 4
+    certified JSON requests sharing a preamble in 2 slots, cold and warm:
+    ids equal, one graph recording across the cached admissions, every
+    replayed block under ``set_sync_debug_mode("error")``; (d) a journaled
+    warm run crashed and restored with the cache (checker clones, admit
+    records with cached pages, ids equal), then the serve CLI's SIGKILL
+    drill with ``--prefix-cache --page-size 8 --prompts 5``.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -647,6 +671,8 @@ def _split_plan_text(q, q2, lat, tbl):
     from repro_torch.kernels.decode_attention.ref import (SCORE_ROWS,
                                                           split_score_plan)
     b, s_win, g, qh, r = q.shape
+    if q.dtype != lat.dtype or str(q.dtype) == "torch.float32":
+        return "float32: CUDA cores, one split"
     n_tiles = 1 if tbl is None else tbl.shape[1]
     n_split, split_len = split_score_plan(b, g, s_win * qh, lat.shape[1],
                                           n_tiles, tbl is not None)
@@ -801,13 +827,18 @@ def _sdpa_yardstick(torch, q, kp, vp, ln, tbl):
 
 
 def _attn_bound(q, kp, ln, tbl, dtype):
+    """Each visible key's K and V rows read once, q read and the output
+    written once; 4 D flops a (key, query row) pair, the window's causal
+    pairs counted exactly."""
     b, s_win, g, qh, d = q.shape
     cap = kp.shape[1] if tbl is None else tbl.shape[1] * kp.shape[1]
     keys = sum(max(0, min(int(x) + s_win - 1, cap)) for x in ln.tolist())
+    pairs = sum(max(0, min(int(x) + s, cap)) for x in ln.tolist()
+                for s in range(s_win)) * g * qh
     esize = q.element_size()
     n_bytes = (keys * g * 2 * d * esize + 2 * q.numel() * esize
                + ln.numel() * 4 + (0 if tbl is None else tbl.numel() * 4))
-    n_ops = keys * g * qh * s_win * 4 * d
+    n_ops = pairs * 4 * d
     return bound_ms(n_bytes, n_ops, dtype)
 
 
@@ -1004,19 +1035,24 @@ class Recorder:
     operand has that S on axis 1, for timing and parity on exactly those
     inputs) while the call goes through the real wrapper, which does its
     own launch counting.  A kept call keeps its operands alive: a refeed's
-    gathered state among them, which ``width`` leaves out."""
+    gathered state among them, which ``width`` leaves out.  With
+    ``min_width`` only calls of at least that S are kept (the cached
+    prefills of the prefix cache)."""
 
-    def __init__(self, module, name, keep_every=1, width=None):
+    def __init__(self, module, name, keep_every=1, width=None,
+                 min_width=None):
         self.module, self.name, self.every = module, name, keep_every
-        self.width = width
+        self.width, self.min_width = width, min_width
         self.fn = getattr(module, name)
         self.calls = []
         self.n = 0
 
     def __enter__(self):
         def wrapped(*args, **kw):
+            s = args[0].shape[1]
             if self.n % self.every == 0 and (
-                    self.width is None or args[0].shape[1] == self.width):
+                    self.width is None or s == self.width) and (
+                    self.min_width is None or s >= self.min_width):
                 self.calls.append((args, kw))
             self.n += 1
             return self.fn(*args, **kw)
@@ -1522,6 +1558,11 @@ def phase_serve(torch, arch, shared):
                 f"step {k} (top-2 logit margin there "
                 f"{(top[0] - top[1]).item():.3e})")
     log(f"[serve] {arch} f32: kernel path == plain path for every request")
+    pfx_entry = None
+    if arch == "deepseek-v3-671b":
+        # phase 9 (b)'s deepseek-v3 part, while its weights are on the card
+        pfx_entry = prefix_mla(torch, shared["card"], eng_k, eng_p, cfg32,
+                               shared)
 
     # (e) float32 through the device loop (sync_n 8) against (a)'s ids
     eng_d = engine_for("float32", True, params=eng_k.params,
@@ -1696,6 +1737,8 @@ def phase_serve(torch, arch, shared):
                     lengths, table, layers_mod)
     out = {"counts": counts,
            "calls": {k: r.calls for k, r in recs.items() if r.calls}}
+    if pfx_entry is not None:
+        out["prefix"] = pfx_entry
     del res, recs
     if not eng._needs_refeed:
         out["fused"] = _fused_bf16(torch, arch, engine_for("bfloat16", True,
@@ -2025,6 +2068,66 @@ def phase_mask_op(torch, path):
 # -- phase 7 --------------------------------------------------------------------
 
 
+def _attn_entry(torch, call, what, dtype="bfloat16"):
+    """Kernel #1 on a recorded call's inputs: its error against the plain
+    version, its time, the plain version's and a library call's, and its
+    bound (peak rate of ``dtype``)."""
+    from repro_torch.kernels.decode_attention.kernel import \
+        decode_attention_cuda
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    (q, kp, vp, ln), kw = call
+    tbl = kw.get("block_tables")
+    got = decode_attention_cuda(q, kp, vp, ln, block_tables=tbl)
+    want = decode_attention_ref(q, kp, vp, ln, block_tables=tbl)
+    torch.cuda.synchronize()
+    err = _check_attn(torch, got, want, q.dtype, f"{what} inputs")
+    bnd, bnd_by = _attn_bound(q, kp, ln, tbl, dtype)
+    return {
+        "max_abs_err": err,
+        "shape": (f"q {tuple(q.shape)} "
+                  f"{'pool' if tbl is not None else 'stripes'} "
+                  f"{tuple(kp.shape)} lengths {ln.tolist()} ({what}, "
+                  f"{'paged' if tbl is not None else 'contiguous'}; "
+                  f"{_plan_text(q, kp, tbl)})"),
+        "ms": time_ms(torch, lambda: decode_attention_cuda(
+            q, kp, vp, ln, block_tables=tbl)),
+        "plain_ms": time_ms(torch, lambda: decode_attention_ref(
+            q, kp, vp, ln, block_tables=tbl)),
+        "bound_ms": bnd, "bound_by": bnd_by,
+        "library_ms": time_ms(torch, _sdpa_yardstick(torch, q, kp, vp, ln,
+                                                     tbl))}
+
+
+def _split_entry(torch, call, what, dtype="bfloat16"):
+    """Kernel #1b on a recorded call's inputs, as ``_attn_entry``."""
+    from repro_torch.kernels.decode_attention.kernel import \
+        decode_attention_split_cuda
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    (q, lat, _, q2, rp, ln), kw = call
+    tbl, scale = kw.get("block_tables"), kw["scale"]
+    got = decode_attention_split_cuda(q, lat, lat, q2, rp, ln, scale=scale,
+                                      block_tables=tbl)
+    want = decode_attention_ref(q, lat, lat, ln, scale=scale, q2=q2, k2=rp,
+                                block_tables=tbl)
+    torch.cuda.synchronize()
+    bnd, bnd_by = _split_bound(q, q2, lat, ln, tbl, dtype)
+    return {
+        "max_abs_err": _check_split(torch, got, want, q.dtype,
+                                    f"{what} inputs"),
+        "shape": (f"q {tuple(q.shape)} q2 {tuple(q2.shape)} pools "
+                  f"{tuple(lat.shape)} / {tuple(rp.shape)} lengths "
+                  f"{ln.tolist()} ({what}, paged; "
+                  f"{_split_plan_text(q, q2, lat, tbl)})"),
+        "ms": time_ms(torch, lambda: decode_attention_split_cuda(
+            q, lat, lat, q2, rp, ln, scale=scale, block_tables=tbl)),
+        "plain_ms": time_ms(torch, lambda: decode_attention_ref(
+            q, lat, lat, ln, scale=scale, q2=q2, k2=rp, block_tables=tbl)),
+        "bound_ms": bnd, "bound_by": bnd_by,
+        "library_ms": time_ms(torch, _split_sdpa_yardstick(
+            torch, q, q2, lat, rp, ln, tbl, scale))}
+
+
+
 def _mid_decode_call(calls, seq_axis):
     """A mid-run decode call (S=1 on ``seq_axis`` of the first operand)
     of a recorded list, else the middle call."""
@@ -2048,9 +2151,6 @@ def phase_kernels(torch, card, paths, scans, attn_long, split_long,
     """Each kernel on the inputs of a mid-run call of a serving path, and
     the attention and scan kernels also on a mid-run verify call (S =
     ``VERIFY_WIDTH``) of a bf16 speculative run."""
-    from repro_torch.kernels.decode_attention.kernel import (
-        decode_attention_cuda, decode_attention_split_cuda)
-    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.kernels.mamba_scan.kernel import mamba_scan_cuda
     from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
     from repro_torch.kernels.masked_sample.kernel import (masked_argmax_bytes,
@@ -2069,7 +2169,7 @@ def phase_kernels(torch, card, paths, scans, attn_long, split_long,
         speculative run, with that run's launches and the card."""
         spec = paths[arch]["spec"]
         call = _mid_verify_call(spec["calls"][name], f"{name} on {arch}")
-        return dict(entry_fn(call, f"{arch} verify"),
+        return dict(entry_fn(torch, call, f"{arch} verify"),
                     launches=spec["counts"][name], card=card)
 
     out = []
@@ -2099,28 +2199,6 @@ def phase_kernels(torch, card, paths, scans, attn_long, split_long,
         "bound_ms": bnd, "bound_by": bnd_by, "library_ms": None,
         **argmax_long["packed"]})
 
-    def attn_entry(call, what):
-        (q, kp, vp, ln), kw = call
-        tbl = kw.get("block_tables")
-        got = decode_attention_cuda(q, kp, vp, ln, block_tables=tbl)
-        want = decode_attention_ref(q, kp, vp, ln, block_tables=tbl)
-        torch.cuda.synchronize()
-        err = _check_attn(torch, got, want, q.dtype, f"{what} inputs")
-        bnd, bnd_by = _attn_bound(q, kp, ln, tbl, "bfloat16")
-        return {
-            "max_abs_err": err,
-            "shape": (f"q {tuple(q.shape)} {'pool' if tbl is not None else 'stripes'} "
-                      f"{tuple(kp.shape)} lengths {ln.tolist()} ({what}, "
-                      f"{'paged' if tbl is not None else 'contiguous'}; "
-                      f"{_plan_text(q, kp, tbl)})"),
-            "ms": time_ms(torch, lambda: decode_attention_cuda(
-                q, kp, vp, ln, block_tables=tbl)),
-            "plain_ms": time_ms(torch, lambda: decode_attention_ref(
-                q, kp, vp, ln, block_tables=tbl)),
-            "bound_ms": bnd, "bound_by": bnd_by,
-            "library_ms": time_ms(torch, _sdpa_yardstick(torch, q, kp, vp,
-                                                         ln, tbl))}
-
     def mid(arch, name):
         calls = paths[arch]["calls"][name]
         return calls[len(calls) // 2]
@@ -2131,41 +2209,17 @@ def phase_kernels(torch, card, paths, scans, attn_long, split_long,
              "replaces": "src/repro/kernels/decode_attention/kernel.py:121",
              "launches": n, "launches_by_path": by,
              "parity": "atol/rtol 2e-2 (bf16)"}
-    entry.update(attn_entry(mid("stablelm-1.6b", "decode_attention"),
-                            "stablelm-1.6b"))
-    entry["contiguous"] = attn_entry(mid("zamba2-1.2b", "decode_attention"),
-                                     "zamba2-1.2b")
+    entry.update(_attn_entry(torch, mid("stablelm-1.6b", "decode_attention"),
+                             "stablelm-1.6b"))
+    entry["contiguous"] = _attn_entry(
+        torch, mid("zamba2-1.2b", "decode_attention"), "zamba2-1.2b")
     entry["long"] = attn_long["long"]
     entry["long_cold"] = attn_long["long_cold"]
-    entry["verify"] = verify(attn_entry, "decode_attention", "stablelm-1.6b")
-    entry["verify_contiguous"] = verify(attn_entry, "decode_attention",
+    entry["verify"] = verify(_attn_entry, "decode_attention",
+                             "stablelm-1.6b")
+    entry["verify_contiguous"] = verify(_attn_entry, "decode_attention",
                                         "zamba2-1.2b")
     out.append(entry)
-
-    def split_entry(call, what):
-        (q, lat, _, q2, rp, ln), kw = call
-        tbl, scale = kw.get("block_tables"), kw["scale"]
-        got = decode_attention_split_cuda(q, lat, lat, q2, rp, ln,
-                                          scale=scale, block_tables=tbl)
-        want = decode_attention_ref(q, lat, lat, ln, scale=scale, q2=q2,
-                                    k2=rp, block_tables=tbl)
-        torch.cuda.synchronize()
-        bnd, bnd_by = _split_bound(q, q2, lat, ln, tbl, "bfloat16")
-        return {
-            "max_abs_err": _check_split(torch, got, want, q.dtype,
-                                        f"{what} inputs"),
-            "shape": (f"q {tuple(q.shape)} q2 {tuple(q2.shape)} pools "
-                      f"{tuple(lat.shape)} / {tuple(rp.shape)} lengths "
-                      f"{ln.tolist()} ({what}, paged; "
-                      f"{_split_plan_text(q, q2, lat, tbl)})"),
-            "ms": time_ms(torch, lambda: decode_attention_split_cuda(
-                q, lat, lat, q2, rp, ln, scale=scale, block_tables=tbl)),
-            "plain_ms": time_ms(torch, lambda: decode_attention_ref(
-                q, lat, lat, ln, scale=scale, q2=q2, k2=rp,
-                block_tables=tbl)),
-            "bound_ms": bnd, "bound_by": bnd_by,
-            "library_ms": time_ms(torch, _split_sdpa_yardstick(
-                torch, q, q2, lat, rp, ln, tbl, scale))}
 
     # the split score, at a mid-run decode call of deepseek-v3's bf16 run
     n, by = launches("decode_attention_split")
@@ -2175,12 +2229,12 @@ def phase_kernels(torch, card, paths, scans, attn_long, split_long,
         "replaces": "src/repro/kernels/decode_attention/kernel.py:121",
         "launches": n, "launches_by_path": by,
         "parity": "atol/rtol 2e-2 (bf16)"}
-    entry.update(split_entry(mid("deepseek-v3-671b",
-                                 "decode_attention_split"),
-                             "deepseek-v3-671b"))
+    entry.update(_split_entry(torch, mid("deepseek-v3-671b",
+                                         "decode_attention_split"),
+                              "deepseek-v3-671b"))
     entry["long"] = split_long["long"]
     entry["long_cold"] = split_long["long_cold"]
-    entry["verify"] = verify(split_entry, "decode_attention_split",
+    entry["verify"] = verify(_split_entry, "decode_attention_split",
                              "deepseek-v3-671b")
     out.append(entry)
 
@@ -2217,7 +2271,7 @@ def phase_kernels(torch, card, paths, scans, attn_long, split_long,
              lambda a: _ssd_bound(a[0], a[1].shape[-1]),
              lambda a: "B={} S={} H={} D={} N={}".format(*a[0].shape,
                                                          a[1].shape[-1]))):
-        def scan_entry(call, what, fn=fn, ref=ref, bound=bound,
+        def scan_entry(torch, call, what, fn=fn, ref=ref, bound=bound,
                        shape_of=shape_of, name=name):
             args, _ = call
             got = fn(*args)
@@ -2240,7 +2294,8 @@ def phase_kernels(torch, card, paths, scans, attn_long, split_long,
                          "src/repro/kernels/ssd_scan/kernel.py:63"),
             "launches": n, "launches_by_path": by,
             "parity": f"atol/rtol {SCAN_TOL} (f32)"}
-        entry.update(scan_entry(_mid_decode_call(paths[arch]["calls"][name],
+        entry.update(scan_entry(torch,
+                                _mid_decode_call(paths[arch]["calls"][name],
                                                  1), f"{arch} decode"))
         entry.update(scans[name])
         entry["verify"] = verify(scan_entry, name, arch)
@@ -2729,18 +2784,23 @@ def _fused_faults(torch, card, shared, eng, cfg, model, params, reqs, run,
     del deng, sched
 
 
-def _sigkill_drill() -> int:
-    """Reference, crash and restore runs of ``repro_torch.launch.serve``;
-    fails unless the crashed run dies by SIGKILL and the restored run's
-    ``IDS`` lines equal the reference run's.  Returns the request count."""
+def _sigkill_drill(extra=(), tag="[faults] (c) drill") -> int:
+    """Reference, crash and restore runs of ``repro_torch.launch.serve``
+    (``DRILL_ARGS`` and then ``extra``: argparse keeps an option's last
+    value); fails unless the crashed run dies by SIGKILL and the restored
+    run's ``IDS`` lines equal the reference run's.  Returns the request
+    count."""
     import os
     import signal
     import tempfile
 
+    extra_args = list(extra)
+
     def serve(*extra):
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
         p = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
-                            *DRILL_ARGS, *extra], cwd=ROOT, env=env,
+                            *DRILL_ARGS, *extra_args, *extra], cwd=ROOT,
+                           env=env,
                            capture_output=True, text=True, timeout=300)
         return p, [ln for ln in p.stdout.splitlines()
                    if ln.startswith("IDS ")]
@@ -2761,17 +2821,530 @@ def _sigkill_drill() -> int:
         raise AssertionError(f"drill restore run: rc {rest.returncode}, "
                              f"IDS {got} against {want}\n"
                              f"{rest.stderr[-2000:]}")
-    for ln in rest.stdout.splitlines():
-        if ln.startswith("[restore]"):
-            log(f"[faults] (c) drill: {ln[:160]}")
+    for ln in ref.stdout.splitlines() + rest.stdout.splitlines():
+        if ln.startswith(("[restore]", "[prefix cache")):
+            log(f"{tag}: {ln[:160]}")
     return len(want)
+
+
+# -- phase 9 --------------------------------------------------------------------
+
+
+# the reference serving bench's Zipf-preamble traffic, copied from
+# benchmarks/serving_bench.py: 16 requests, each one of three long preambles
+# picked by Zipf(1.4) from seed 42 and a unique short suffix, the grammar
+# turning through json, c and unconstrained, 4 tokens each (prefill-bound),
+# 16-token pages, a pool of 160 pages, 4 slots
+PFX_PREAMBLES = [
+    "You are a strict data formatter; always answer with one value and "
+    "nothing else. The schema below is authoritative and versioned. " * 2,
+    "System: the following conversation extracts configuration records "
+    "from logs; keep keys stable across turns and quote every string. ",
+    "Common few-shot preamble: {\"a\": 1} {\"b\": [2, 3]} now continue "
+    "in exactly the same style for the next record. ",
+]
+PFX_N_REQUESTS = 16
+PFX_MAX_TOKENS = 4
+PFX_PAGE_SIZE = 16
+PFX_N_PAGES = 160
+PFX_SLOTS = 4
+# phase 9 (c) and (d): one preamble of several pages shared by every request
+PFX_SHARED = ("Instructions shared by every request of this deployment: "
+              "answer with exactly one JSON value that follows the schema "
+              "of the record, and write nothing else. Record: ")
+# two float32 runs that diverge are wrong unless the top-2 legal logit
+# margin at the step where they part is below this (float32 noise of a
+# full-width forward: the cached prefill reads the prefix through #1 where
+# the cold prefill attends densely)
+MARGIN_NOISE = 1e-3
+# the serve CLI's SIGKILL drill through the cache, as the reference's
+# restart drill runs it (a repeated prompt, 8-token pages)
+DRILL_PFX = ["--prompts", "5", "--page-size", "8", "--prefix-cache"]
+
+
+def _zipf_trace():
+    import numpy as np
+
+    from repro_torch.serving import ConstraintSpec, DecodeParams, Request
+    rng = np.random.default_rng(42)
+    picks = np.minimum(rng.zipf(1.4, size=PFX_N_REQUESTS),
+                       len(PFX_PREAMBLES)) - 1
+    specs = [ConstraintSpec(grammar="json", mode="domino"),
+             ConstraintSpec(grammar="c", mode="domino"), ConstraintSpec()]
+    return [Request(PFX_PREAMBLES[picks[i]] + f"q{i}: ", specs[i % 3],
+                    DecodeParams(max_tokens=PFX_MAX_TOKENS, seed=i))
+            for i in range(PFX_N_REQUESTS)]
+
+
+def _shareable(sessions, page_size):
+    """Prefill tokens the cache could skip: a request's longest common
+    token prefix with any earlier request, floored to whole pages (the
+    reference bench's ``_shareable_tokens``)."""
+    ids = [s.prompt_ids for s in sorted(sessions, key=lambda s: s.rid)]
+    total = 0
+    for i in range(1, len(ids)):
+        best = 0
+        for j in range(i):
+            n = 0
+            for a, b in zip(ids[i], ids[j]):
+                if a != b:
+                    break
+                n += 1
+            best = max(best, n)
+        total += best // page_size * page_size
+    return total
+
+
+def register_grammars(eng, shared, names):
+    """Register ``names`` on ``eng`` over the run's shared tree caches; a
+    grammar met for the first time is precomputed once."""
+    fresh = False
+    for name in names:
+        fresh |= name not in shared["trees"]
+        shared["trees"][name] = eng.register_grammar(
+            name, shared["grammars"][name],
+            tree_cache=shared["trees"].get(name))
+    if fresh:
+        t0 = time.perf_counter()
+        eng.precompute()
+        log(f"[prefix] grammar trees ({', '.join(names)}) precomputed in "
+            f"{time.perf_counter() - t0:.1f}s")
+
+
+def pfx_run(torch, eng, reqs, prefix_cache, **kw):
+    """One scheduler run of ``reqs`` through the Zipf cell's pool; returns
+    (results, scheduler)."""
+    from repro_torch.serving.scheduler import ContinuousBatchingScheduler
+    kw = dict(dict(capacity=PFX_SLOTS, page_size=PFX_PAGE_SIZE,
+                   n_pages=PFX_N_PAGES, debug_invariants=True), **kw)
+    sched = ContinuousBatchingScheduler(eng, prefix_cache=prefix_cache, **kw)
+    sess = [sched.submit(r) for r in reqs]
+    sched.run()
+    torch.cuda.synchronize()
+    return [s.result for s in sess], sched
+
+
+def _legal_margin(torch, eng, req, ids):
+    """Top-2 logit margin among the tokens ``req``'s constraint allows after
+    ``ids``, from a plain float32 prefill of prompt + ``ids``."""
+    sess = eng.make_session(0, req)
+    for t in ids:
+        if sess.checker is not None:
+            sess.checker.advance(int(t))
+    full = list(sess.prompt_ids) + list(ids)
+    cache = eng.model.init_cache(1, MAX_LEN, device="cuda")
+    lg, _ = eng.model.prefill(
+        eng.params, {"tokens": torch.tensor([full], device="cuda")}, cache)
+    row = lg[0, -1, :eng.tok.vocab_size].float()
+    if sess.checker is not None:
+        legal = torch.as_tensor(sess.checker.mask(), device="cuda")
+        row = torch.where(legal, row, torch.tensor(float("-inf"),
+                                                   device="cuda"))
+    top = torch.topk(row, 2).values
+    return (top[0] - top[1]).item()
+
+
+def same_ids(torch, eng, reqs, got, want, what):
+    """Ids and statuses equal, or parted at a step whose top-2 legal margin
+    (printed) is below ``MARGIN_NOISE``.  ``eng`` is a float32 engine.
+    Returns the number of such near-tie divergences."""
+    n = 0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if (a.token_ids, a.status) == (b.token_ids, b.status):
+            continue
+        k = next((j for j, (x, y) in enumerate(zip(a.token_ids,
+                                                   b.token_ids))
+                  if x != y), min(len(a.token_ids), len(b.token_ids)))
+        m = _legal_margin(torch, eng, reqs[i], a.token_ids[:k])
+        log(f"[prefix] {what}: request {i} parts at step {k} ({a.status} "
+            f"{a.n_tokens} tokens against {b.status} {b.n_tokens}); top-2 "
+            f"legal logit margin there {m:.3e}")
+        if m >= MARGIN_NOISE:
+            raise AssertionError(f"{what}: request {i} diverges at step {k} "
+                                 f"with a top-2 margin of {m:.3e}")
+        n += 1
+    return n
+
+
+def _drained_after_reset(sched, what):
+    """Leak-free: every page but the cache's is free, and all of them once
+    the cache lets go."""
+    held = sched.prefix_cache.n_pages
+    if sched.pool.available != sched.n_pages - 1 - held:
+        raise AssertionError(f"{what}: {sched.pool.available} pages free, "
+                             f"{held} held by the cache, of {sched.n_pages}")
+    sched.prefix_cache.reset()
+    if sched.pool.available != sched.n_pages - 1:
+        raise AssertionError(f"{what}: pages leaked after the cache's reset")
+
+
+def prefix_mla(torch, card, eng_k, eng_p, cfg, shared):
+    """Phase 9 (b), deepseek-v3's part, run inside phase 5's float32 serve
+    while its weights are on the card: the Zipf trace warm (prefix cache)
+    through the kernels, its cached prefills on #1b at S > 1, against the
+    same through the plain path (ids equal under the margin rule), and
+    warm against cold printed (its capacity-bound MoE routes a tail
+    bucket's pads with the real tokens, so warm may differ from cold).
+    Returns #1b's ``prefix`` entry, on a mid-run cached-prefill call."""
+    from repro_torch.kernels.decode_attention import ops as attn_ops
+    for e in (eng_k, eng_p):
+        register_grammars(e, shared, ("c",))
+    reqs = _zipf_trace()
+    rec = Recorder(attn_ops, "decode_attention_split_cuda", min_width=2)
+    with rec, ForwardCount(eng_k) as fwd:
+        reset_counts()
+        t0 = time.perf_counter()
+        warm, sched = pfx_run(torch, eng_k, reqs, True)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    check_launches(cfg, counts, fwd, "deepseek-v3 f32 warm kernel run")
+    st = sched.stats()
+    tails = {s: n for s, n in sorted(fwd.decode.items()) if s > 1}
+    if st["n_prefix_hits"] == 0 or sum(tails.values()) != \
+            st["n_prefix_hits"] or not rec.calls:
+        raise AssertionError(f"deepseek-v3 f32 warm run: {st['n_prefix_hits']}"
+                             f" hits, cached-prefill widths {tails}")
+    _drained_after_reset(sched, "deepseek-v3 f32 warm run")
+    warm_p, _ = pfx_run(torch, eng_p, reqs, True)
+    cold, _ = pfx_run(torch, eng_k, reqs, False)
+    flips = same_ids(torch, eng_p, reqs, warm, warm_p,
+                     "deepseek-v3 f32 warm, kernels against plain")
+    same_cold = sum(a.token_ids == b.token_ids for a, b in zip(warm, cold))
+    log(f"[prefix] (b) deepseek-v3-671b f32 (depth {cfg.n_layers}) Zipf "
+        f"trace warm: {st['n_prefix_hits']} hits, {st['n_prefix_tokens']} "
+        f"prefill tokens skipped, {st['prefix_n_evicted']} evictions; "
+        f"cached prefills by S {tails}; launches decode_attention_split "
+        f"{counts['decode_attention_split']} = {cfg.n_layers} x "
+        f"{fwd.n_decode} decode forwards; kernels == plain ({flips} "
+        f"near-tie divergences); warm ids equal to cold for {same_cold} of "
+        f"{len(reqs)} requests (printed, not required); {wall:.1f}s on "
+        f"{card}")
+    call = rec.calls[len(rec.calls) // 2]
+    return dict(_split_entry(torch, call, "deepseek-v3-671b f32 cached "
+                             "prefill", dtype="float32"),
+                launches=counts["decode_attention_split"],
+                prefill_launches=len(rec.calls), dtype="float32", card=card)
+
+
+class PrefillTimer:
+    """Host wall of each admission prefill, cached (``_cached_prefill``:
+    the tail as one decode) and full (``_full_prefill``), the card
+    synchronised before and after each; and the width each fed."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.cached, self.full = [], []
+
+    def __enter__(self):
+        from repro_torch.serving.scheduler import ContinuousBatchingScheduler
+        cls, torch, t = ContinuousBatchingScheduler, self.torch, self
+        self.orig = (cls._cached_prefill, cls._full_prefill)
+
+        def cached(sched, slot, ids, page_ids, n_cached):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = t.orig[0](sched, slot, ids, page_ids, n_cached)
+            torch.cuda.synchronize()
+            t.cached.append((time.perf_counter() - t0,
+                             len(ids) - n_cached * sched.page_size))
+            return out
+
+        def full(sched, sess, slot, ids, page_ids):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = t.orig[1](sched, sess, slot, ids, page_ids)
+            torch.cuda.synchronize()
+            t.full.append((time.perf_counter() - t0, len(ids)))
+            return out
+        cls._cached_prefill, cls._full_prefill = cached, full
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.serving.scheduler import ContinuousBatchingScheduler
+        (ContinuousBatchingScheduler._cached_prefill,
+         ContinuousBatchingScheduler._full_prefill) = self.orig
+
+    @staticmethod
+    def mean(rows):
+        if not rows:
+            return "none"
+        return (f"{sum(r[0] for r in rows) / len(rows) * 1e3:.2f} ms a call "
+                f"over {len(rows)}, {sum(r[1] for r in rows) / len(rows):.1f}"
+                " tokens fed")
+
+
+def _timed_pfx(torch, eng, reqs, prefix_cache):
+    """A timed run of the Zipf cell without the invariant audit: (results,
+    scheduler, wall seconds, mean seconds from admission to the end of the
+    tick that committed a request's first token)."""
+    from repro_torch.serving.scheduler import ContinuousBatchingScheduler
+    sched = ContinuousBatchingScheduler(
+        eng, capacity=PFX_SLOTS, page_size=PFX_PAGE_SIZE,
+        n_pages=PFX_N_PAGES, prefix_cache=prefix_cache)
+    sess = [sched.submit(r) for r in reqs]
+    first = {}
+    t0 = time.perf_counter()
+    while sched.waiting or any(s is not None for s in sched.slots):
+        sched.step()
+        now = time.perf_counter()
+        for s in sess:
+            if s.rid not in first and s.out_ids:
+                first[s.rid] = now - s.t_admit
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ttft = sum(first.values()) / max(len(first), 1)
+    return [s.result for s in sess], sched, wall, ttft
+
+
+def phase_prefix(torch, card, shared):
+    """Phase 9, the radix prefix cache at stablelm-1.6b's published width:
+    (a) the bench's Zipf-preamble trace in float32 cold, then warm through
+    the kernels (ids equal under the margin rule, >= 90% of the shareable
+    prefill tokens skipped, the pool leak-free after the cache's reset,
+    launches of #1 counted with cached prefills as decode forwards of
+    width S), and warm through the plain path; (b) bfloat16 cold, warm,
+    warm, cold (tok/s, admission to first token, cached against full
+    prefill walls) and #1's ``prefix`` entry on a mid-run cached-prefill
+    call; (c) the device loop with the cache, float32, cold and warm, one
+    recording across the cached admissions; (d) a journaled warm run
+    crashed and restored with the cache (checker clones, cached admit
+    records), then the serve CLI's SIGKILL drill with ``--prefix-cache``.
+    Returns #1's ``prefix`` entry."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops as attn_ops
+    from repro_torch.models import build_model
+    from repro_torch.serving import (ConstraintSpec, DecodeParams, Request,
+                                     ServingEngine, TokenJournal,
+                                     read_records)
+    from repro_torch.serving.scheduler import ContinuousBatchingScheduler
+
+    tok = shared["tok"]
+    base = get_config("stablelm-1.6b")
+
+    def engine(dtype, kernels, params=None, names=("json", "c"),
+               device_tables=False):
+        model = build_model(dataclasses.replace(
+            base, dtype=dtype, use_pallas_kernels=kernels))
+        if params is None:
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(0)
+            params = model.init(gen, device="cuda")
+        eng = ServingEngine(model, params, tok, max_len=MAX_LEN,
+                            device_tables=device_tables, device="cuda")
+        register_grammars(eng, shared, names)
+        return eng
+
+    # (a) float32 through the kernels, cold then warm, and warm plain
+    reqs = _zipf_trace()
+    eng_k = engine("float32", True)
+    cfg = eng_k.model.cfg
+    log(f"[prefix] (a) {describe(cfg)}, float32; the bench's Zipf trace: "
+        f"{PFX_N_REQUESTS} requests over preambles of "
+        f"{[len(tok.encode(p)) for p in PFX_PREAMBLES]} tokens, "
+        f"{PFX_MAX_TOKENS} tokens each, {PFX_PAGE_SIZE}-token pages, "
+        f"{PFX_N_PAGES} pages, {PFX_SLOTS} slots")
+    t0 = time.perf_counter()
+    cold, _ = pfx_run(torch, eng_k, reqs, False)
+    t_cold = time.perf_counter() - t0
+    with ForwardCount(eng_k) as fwd:
+        reset_counts()
+        t0 = time.perf_counter()
+        warm, sched = pfx_run(torch, eng_k, reqs, True)
+        t_warm = time.perf_counter() - t0
+        counts = read_counts()
+    check_launches(cfg, counts, fwd, "(a) warm kernel run")
+    st = sched.stats()
+    tails = {s: n for s, n in sorted(fwd.decode.items()) if s > 1}
+    shareable = _shareable(sched.finished, PFX_PAGE_SIZE)
+    flips = same_ids(torch, eng_k, reqs, warm, cold, "(a) warm against cold")
+    n_argmax = counts["masked_argmax_packed"]
+    if st["n_prefix_tokens"] < 0.9 * shareable \
+            or sum(tails.values()) != st["n_prefix_hits"] \
+            or not 0 < n_argmax <= st["n_host_syncs"]:
+        raise AssertionError(f"(a) warm run: {st['n_prefix_tokens']} of "
+                             f"{shareable} shareable tokens skipped, "
+                             f"{st['n_prefix_hits']} hits, cached-prefill "
+                             f"widths {tails}, #2 {n_argmax} launches for "
+                             f"{st['n_host_syncs']} selection ticks")
+    _drained_after_reset(sched, "(a) warm run")
+    log(f"[prefix] (a) warm == cold ({flips} near-tie divergences): "
+        f"{st['n_prefix_hits']} hits, {st['n_prefix_tokens']} of "
+        f"{shareable} shareable prefill tokens skipped "
+        f"({st['n_prefix_tokens'] / max(shareable, 1):.3f}), "
+        f"{st['prefix_n_evicted']} evictions, {st['prefix_n_inserted']} "
+        f"nodes inserted; launches decode_attention "
+        f"{counts['decode_attention']} = {cfg.n_layers} x {fwd.n_decode} "
+        f"decode forwards ({sum(tails.values())} of them cached prefills, "
+        f"by S {tails}) + 0 x {fwd.prefill} full prefills, "
+        f"masked_argmax_packed {n_argmax} for {st['n_host_syncs']} "
+        f"selection ticks; pool leak-free after the cache's reset; cold "
+        f"{t_cold:.1f}s, warm {t_warm:.1f}s (audited) on {card}")
+    eng_p = engine("float32", False, params=eng_k.params)
+    warm_p, _ = pfx_run(torch, eng_p, reqs, True)
+    flips = same_ids(torch, eng_k, reqs, warm, warm_p,
+                     "(a) warm, kernels against plain")
+    log(f"[prefix] (a) warm through the kernels == warm through the plain "
+        f"path ({flips} near-tie divergences)")
+    del eng_p, warm_p
+
+    # (c) the device loop with the cache: certified JSON rows sharing a
+    # preamble, 2 slots, so admissions arrive between fused blocks
+    reqs_c = [Request(PFX_SHARED + f"r{i}: ",
+                      ConstraintSpec(grammar="json", mode="domino"),
+                      DecodeParams(max_tokens=MAX_TOKENS))
+              for i in range(4)]
+    eng_d = engine("float32", True, params=eng_k.params, names=("json",),
+                   device_tables=True)
+    device_tables_for(eng_d, shared)
+    loop = dict(capacity=2, device_loop=True, sync_n=8)
+    cold_c, _ = pfx_run(torch, eng_d, reqs_c, False, **loop)
+    after = []
+    orig = ContinuousBatchingScheduler._cached_prefill
+
+    def cached_prefill(sched, *args):
+        after.append(sched._fused is not None
+                     and sched._fused.graph is not None)
+        return orig(sched, *args)
+    ContinuousBatchingScheduler._cached_prefill = cached_prefill
+    try:
+        with FusedAudit(torch) as audit, ForwardCount(eng_d) as fwd:
+            reset_counts()
+            warm_c, sched = pfx_run(torch, eng_d, reqs_c, True, **loop)
+            counts = read_counts()
+    finally:
+        ContinuousBatchingScheduler._cached_prefill = orig
+    flips = same_ids(torch, eng_d, reqs_c, warm_c, cold_c,
+                     "(c) device loop warm against cold")
+    line = check_fused(cfg, sched, counts, fwd, audit, "(c) warm device loop")
+    if sched._fused.n_records != 1 or not any(after) \
+            or sched.n_device_tokens == 0 or sched.n_prefix_hits == 0:
+        raise AssertionError(f"(c) warm device loop: {sched._fused.n_records}"
+                             f" recordings, cached admissions after the "
+                             f"recording {after}, {sched.n_device_tokens} "
+                             f"device tokens, {sched.n_prefix_hits} hits")
+    _drained_after_reset(sched, "(c) warm device loop")
+    log(f"[prefix] (c) device loop, sync_n 8, 2 slots: warm == cold "
+        f"({flips} near-tie divergences); {sched.n_prefix_hits} hits, "
+        f"{sum(after)} of {len(after)} cached admissions after the graph "
+        f"was recorded, one recording; {sched.n_device_tokens} of "
+        f"{sum(r.n_tokens for r in warm_c)} tokens in fused blocks; {line}")
+    del eng_d
+
+    # (d) durability: identical requests (identical outputs), so a
+    # restored entry clones the checker snapshot of the one before it
+    reqs_d = [Request(PFX_SHARED, ConstraintSpec(grammar="json",
+                                                 mode="domino"),
+                      DecodeParams(max_tokens=MAX_TOKENS))
+              for _ in range(3)]
+    dur = dict(capacity=2, page_size=PFX_PAGE_SIZE, n_pages=None)
+    ref, _ = pfx_run(torch, eng_k, reqs_d, True, **dur)
+    crash_after = max(1, min(r.n_tokens for r in ref[:2]) // 2)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(pathlib.Path(tmp) / "journal")
+        journal = TokenJournal(path, crash_after_syncs=crash_after,
+                               crash_hook=_crash_hook)
+        sched = ContinuousBatchingScheduler(eng_k, journal=journal,
+                                            prefix_cache=True, **dur)
+        for r in reqs_d:
+            sched.submit(r)
+        try:
+            sched.run()
+            raise AssertionError("(d) the journaled run did not crash")
+        except CrashHook:
+            journal.dead = True        # the process is gone
+        admits = [r for r in read_records(path) if r["kind"] == "admit"]
+        with ForwardCount(eng_k) as fwd:
+            reset_counts()
+            t0 = time.perf_counter()
+            rest = eng_k.restore(path, prefix_cache=True,
+                                 debug_invariants=True, **dur)
+            n_live, clones = len(rest.waiting), rest.n_checker_clones
+            got = rest.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+    check_launches(cfg, counts, fwd, "(d) restore")
+    flips = same_ids(torch, eng_k, reqs_d, got, ref,
+                     "(d) restored against uninterrupted")
+    cached = [a["cached_pages"] for a in admits]
+    if clones == 0 or not any(cached):
+        raise AssertionError(f"(d) restore: {clones} checker clones, admit "
+                             f"records' cached pages {cached}")
+    _drained_after_reset(rest, "(d) restore")
+    log(f"[prefix] (d) crash after {crash_after} fsyncs, restore with the "
+        f"cache: {n_live} of {len(got)} requests resumed live, {clones} "
+        f"checker clones, admit records' cached pages {cached}; ids == the "
+        f"uninterrupted run ({flips} near-tie divergences); {wall:.1f}s on "
+        f"{card}")
+    del eng_k
+    torch.cuda.empty_cache()
+
+    # (b) bfloat16: cold, warm, warm, cold on one engine; #1's entry on a
+    # mid-run cached prefill of "warm 1"
+    eng = engine("bfloat16", True)
+    for pc in (False, True):                  # warm-up: shapes, allocator
+        _timed_pfx(torch, eng, reqs, pc)
+    runs = {}
+    for what in ("cold 1", "warm 1", "warm 2", "cold 2"):
+        rec = Recorder(attn_ops, "decode_attention_cuda", min_width=2)
+        with rec, PrefillTimer(torch) as pt:
+            reset_counts()
+            res, sched, wall, ttft = _timed_pfx(torch, eng, reqs,
+                                                what.startswith("warm"))
+            counts = read_counts()
+        n_tok = sum(r.n_tokens for r in res)
+        runs[what] = (n_tok / wall, ttft, pt, rec, counts, sched)
+        log(f"[prefix] (b) stablelm-1.6b bf16 {what}: {n_tok} tokens in "
+            f"{wall:.3f}s = {n_tok / wall:.1f} tok/s; admission to first "
+            f"token {ttft * 1e3:.1f} ms (mean); {sched.n_prefix_hits} hits, "
+            f"{sched.n_prefix_tokens} prefill tokens skipped; cached "
+            f"prefill {pt.mean(pt.cached)}; full prefill "
+            f"{pt.mean(pt.full)}; on {card}")
+    mean = {m: [sum(runs[f"{m} {i}"][j] for i in (1, 2)) / 2
+                for j in (0, 1)] for m in ("cold", "warm")}
+    log(f"[prefix] (b) bf16 warm over cold (means of two runs each): tok/s "
+        f"{mean['warm'][0]:.1f} / {mean['cold'][0]:.1f} = "
+        f"{mean['warm'][0] / mean['cold'][0]:.3f}; admission to first "
+        f"token {mean['warm'][1] * 1e3:.1f} / {mean['cold'][1] * 1e3:.1f} ms")
+    _, _, _, rec, counts, _ = runs["warm 1"]
+    if not rec.calls:
+        raise AssertionError("(b) warm 1 recorded no cached prefill")
+    call = rec.calls[len(rec.calls) // 2]
+    entry = dict(_attn_entry(torch, call, "stablelm-1.6b bf16 cached "
+                             "prefill"),
+                 launches=counts["decode_attention"],
+                 prefill_launches=len(rec.calls), dtype="bfloat16",
+                 card=card)
+    del eng, runs, rec, call
+    torch.cuda.empty_cache()
+
+    # (d) the serve CLI's SIGKILL drill through the cache, three processes
+    t0 = time.perf_counter()
+    drill = _sigkill_drill(DRILL_PFX, tag="[prefix] (d) drill")
+    log(f"[prefix] (d) SIGKILL drill ({' '.join(DRILL_ARGS + DRILL_PFX)}): "
+        f"the crashed run died by SIGKILL after {DRILL_CRASH_AFTER} fsyncs; "
+        f"{drill} requests restored with IDS lines equal to the reference "
+        f"run's; three processes in {time.perf_counter() - t0:.1f}s on "
+        f"{card}")
+    return entry
+
+
+def log_prefix_entry(name, e):
+    log(f"[kernel] {name} prefix ({e['launches']} launches in the warm run, "
+        f"{e['prefill_launches']} on cached prefills, {e['dtype']}, "
+        f"{e['card']}): {e['ms']:.4f} ms (plain {e['plain_ms']:.4f} ms, "
+        f"library {e['library_ms']:.4f} ms, bound {e['bound_ms']:.6f} ms by "
+        f"{e['bound_by']}) at {e['shape']}")
 
 
 def _finite(k) -> bool:
     nums = [k[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms",
                                "max_abs_err")]
     for sub in ("contiguous", "long", "long_cold", "verify",
-                "verify_contiguous"):
+                "verify_contiguous", "prefix"):
         if sub in k:
             nums += [k[sub].get(key) for key in ("ms", "plain_ms", "bound_ms",
                                                  "library_ms", "max_abs_err")]
@@ -2820,7 +3393,9 @@ def main() -> int:
         log(f"[serve] tokenizer: {tok.vocab_size} tokens, trained in "
             f"{time.perf_counter() - t0:.1f}s")
         shared = {"tok": tok, "grammar": json_g,
-                  "gsm8k": grammars.load("json_gsm8k"), "trees": {}}
+                  "gsm8k": grammars.load("json_gsm8k"), "trees": {},
+                  "grammars": {"json": json_g, "c": grammars.load("c")},
+                  "card": card}
         paths = {arch: timed(f"serve {arch}", phase_serve, torch, arch,
                              shared)
                  for arch in MODELS}
@@ -2829,6 +3404,14 @@ def main() -> int:
         kernels = timed("kernels", phase_kernels, torch, card, paths, scans,
                         attn_long, split_long, argmax_long)
         timed("faults and durability", phase_faults, torch, card, shared)
+        prefix = timed("prefix cache", phase_prefix, torch, card, shared)
+        for k in kernels:
+            if k["name"] == "decode_attention":
+                k["prefix"] = prefix
+            elif k["name"] == "decode_attention_split":
+                k["prefix"] = paths["deepseek-v3-671b"]["prefix"]
+            if "prefix" in k:
+                log_prefix_entry(k["name"], k["prefix"])
     except Exception as e:  # every phase's failure fails the run
         import traceback
         traceback.print_exc()

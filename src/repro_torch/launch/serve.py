@@ -41,6 +41,12 @@ can be held bitwise to an uninterrupted one (the same holds for
 certifies clean; ``--device-loop`` (which implies it) runs certified greedy
 rows through the scheduler's fused block, ``--sync-n`` decode steps a host
 sync, each block one CUDA graph replay on the card.
+
+``--prefix-cache`` (paged KV only) serves through the scheduler's radix
+prefix cache: an admission whose prompt shares whole pages with an earlier
+one maps them and prefills only its tail, and a restore with the flag
+clones cached checker snapshots; ``--prompts 5 --page-size 8`` repeats a
+prompt and makes whole-page hits certain.
 """
 import argparse
 
@@ -107,6 +113,12 @@ def parse_args(argv=None):
                     metavar="K",
                     help="fault drill: SIGKILL this process after the "
                          "journal's K-th fsync")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="radix prefix cache over the paged KV pool: "
+                         "admissions sharing a token prefix map the cached "
+                         "pages copy-on-write and prefill only the tail "
+                         "(the same output as a cold cache); needs paged "
+                         "KV")
     ap.add_argument("--device-tables", action="store_true",
                     help="build device grammar tables at precompute for "
                          "every registered grammar that certifies clean "
@@ -216,7 +228,8 @@ def main(argv=None) -> None:
                                crash_after_syncs=args.crash_after_syncs)
     pool = dict(paged=False if args.no_paged else None,
                 page_size=args.page_size, n_pages=args.pool_pages,
-                device_loop=args.device_loop, sync_n=args.sync_n)
+                device_loop=args.device_loop, sync_n=args.sync_n,
+                prefix_cache=args.prefix_cache)
     if args.restore:
         # the same seeded engine as the crashed run, so re-prefill
         # regenerates its logits, and its slot count, so the batch shapes
@@ -244,6 +257,10 @@ def main(argv=None) -> None:
                   else "contiguous KV")
         print(f"[continuous batching: {len(requests)} requests, "
               f"{min(len(requests), args.slots)} slots, {layout}]")
+        if args.prefix_cache:
+            st = engine.last_batch_stats
+            print(f"[prefix cache: {st['n_prefix_hits']} hits, "
+                  f"{st['n_prefix_tokens']} prefill tokens skipped]")
     else:
         results = [engine.generate(r) for r in requests]
     for lbl, req, r in zip(labels, requests, results):

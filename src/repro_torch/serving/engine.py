@@ -40,7 +40,11 @@ closure certificate is clean and upload them all as one
 then decodes certified greedy rows ``sync_n`` steps a host sync through
 the scheduler's fused block (one CUDA graph replay a block on the card).
 
-Not ported yet (ROADMAP Queue 1): ``pin_prompt`` and the prefix cache.
+The prefix cache: ``generate_batch(..., prefix_cache=True)`` and
+``restore(..., prefix_cache=True)`` (paged only) share whole KV pages
+across requests with equal token prefixes through the scheduler's radix
+tree, so an admission prefills only its private tail; ``pin_prompt``
+registers a shared preamble that such a scheduler prefills once and pins.
 """
 from __future__ import annotations
 
@@ -222,6 +226,10 @@ class ServingEngine:
         self.count_model = count_model or CountModel()
         self._speculators: Dict[Tuple[int, float], Speculator] = {}
         self.speculator = self._speculator_for(self.default_decode)
+        # engine-default prompts (system preambles, few-shot headers)
+        # registered by pin_prompt(): a prefix-cache scheduler prefills and
+        # pins their full pages, so the first request sharing one hits
+        self.pinned_prompts: List[str] = []
         # engine-level rng for the legacy default policy
         self.rng = np.random.default_rng(self.cfg.seed)
         self._v = tok.vocab_size   # model logits may be vocab-padded
@@ -355,6 +363,14 @@ class ServingEngine:
         if self.enable_device_tables:
             out["device_table_seconds"] = self.build_device_tables()
         return out
+
+    def pin_prompt(self, prompt: str) -> None:
+        """Register an engine-default prompt (a shared system preamble or
+        few-shot header) for pinning: a prefix-cache scheduler's ``warm()``
+        prefills its whole-page prefix once and pins the pages against
+        eviction.  Schedulers without ``prefix_cache=True`` ignore it."""
+        if prompt not in self.pinned_prompts:
+            self.pinned_prompts.append(prompt)
 
     def build_device_tables(self) -> float:
         """Build a :class:`DeviceGrammarTable` for every registered grammar
@@ -537,7 +553,9 @@ class ServingEngine:
                 if tok is None:
                     return None, 0, mask_t
                 return tok, 1, mask_t
-            mask = bitmask.unpack(bits, self._v)
+            # sampling at temperature > 0 is the one place the bits widen;
+            # the greedy and verify paths above stay packed
+            mask = bitmask.unpack(bits, self._v)  # hotpath-lint: allow
         if not mask.any():
             return None, 0, mask_t
         tok = self._select(logits, mask, pol)
@@ -746,7 +764,8 @@ class ServingEngine:
                        device_loop: bool = False,
                        sync_n: int = 8,
                        journal=None,
-                       supervisor=None) -> List[GenerationResult]:
+                       supervisor=None,
+                       prefix_cache: bool = False) -> List[GenerationResult]:
         """Serve ``requests`` through the continuous-batching scheduler.
         ``max_batch`` caps the decode batch (slots); extra requests wait
         and reuse slots.  The KV cache is paged by default on pageable
@@ -769,7 +788,13 @@ class ServingEngine:
         ``ServingEngine(..., device_tables=True)`` and :meth:`precompute`);
         ``sync_n`` is the number of decode steps a block fuses per host
         sync.  Other rows decode on the host path, token for token as with
-        ``device_loop=False``."""
+        ``device_loop=False``.
+
+        ``prefix_cache=True`` (paged only) shares whole KV pages across
+        requests with equal token prefixes through a radix tree,
+        copy-on-write: an admission maps the cached prefix and prefills
+        only its tail, with the same output as a cold cache.  The engine's
+        pinned prompts (``pin_prompt``) are prefilled first."""
         from repro_torch.serving.scheduler import ContinuousBatchingScheduler
         cap = min(len(requests), max_batch) if max_batch else len(requests)
         kwargs = {}
@@ -786,7 +811,12 @@ class ServingEngine:
             fault_injector=fault_injector,
             debug_invariants=debug_invariants,
             device_loop=device_loop, sync_n=sync_n,
-            journal=journal, supervisor=supervisor, **kwargs)
+            journal=journal, supervisor=supervisor,
+            prefix_cache=prefix_cache, **kwargs)
+        if prefix_cache:
+            # the pinned prompts go in before any admission (precompute()
+            # is the caller's)
+            sched._pin_prompts()
         sessions = [sched.submit(r) for r in requests]
         sched.run()
         self.last_batch_stats = sched.stats()
@@ -803,7 +833,9 @@ class ServingEngine:
         (typically ``TokenJournal(journal_path)``, which truncates a torn
         tail) to keep the resumed run durable in the same file: replayed
         state is journaled idempotently, so repeated crash/restore cycles
-        converge."""
+        converge.  With ``prefix_cache=True`` among ``scheduler_kwargs``
+        the live entries adopt cached checker snapshots and re-acquire
+        their prefixes' pages through the cache."""
         from repro_torch.serving.journal import replay_journal
         from repro_torch.serving.scheduler import ContinuousBatchingScheduler
         entries = replay_journal(journal_path)

@@ -72,8 +72,19 @@ Per tick:
    ``table_corrupt`` in the mask-row audit and ``decode_nan`` planned for
    the whole block, and level 0 of the supervisor's ladder is this path.
 
+The radix prefix cache (``prefix_cache``, paged only,
+``serving/prefix_cache.py``) shares whole KV pages across requests with
+equal token prefixes, copy-on-write by construction: admission maps the
+longest cached whole-page prefix (capped one token short, so the boundary
+page stays private) into the row's table and feeds only the tail, as one
+multi-token decode over a B=1 view of the pool (``_cached_prefill``); a
+row's full pages are donated after its prefill and at its teardown, with
+a checker snapshot that a restart's ``adopt`` clones instead of replaying
+``advance()``; the engine's pinned prompts are prefilled once into pinned
+nodes (``warm``); LRU eviction of cache-only pages runs before admission
+backpressures or a row is preempted, and an engine reset drops the cache.
+
 Per-request outputs match ``ServingEngine.generate`` token for token.
-Not ported yet (ROADMAP Queue 1): the prefix cache.
 """
 from __future__ import annotations
 
@@ -97,6 +108,7 @@ from repro_torch.serving.faults import (FaultInjector, InjectedFault,
                                         InvariantViolation, check_invariants)
 from repro_torch.serving.fused import FusedBlock, GraphCaptureError
 from repro_torch.serving.journal import JournalEntry, TokenJournal
+from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.request import (ConstraintSpec, DecodeParams,
                                          Request, select_token)
 from repro_torch.serving.session import GenerationResult, Session
@@ -111,15 +123,17 @@ class PagePool:
     """Host-side free-list allocator over pool page ids.
 
     Page 0 is the reserved trash page; pages 1..n_pages-1 are allocatable.
-    LIFO reuse: a freed page is the next one handed out.  (The JAX
-    package's pool also refcounts pages for its prefix cache, which is not
-    ported yet.)
+    LIFO reuse: a freed page is the next one handed out.  Pages carry
+    refcounts so the prefix cache can share them: ``alloc`` hands out pages
+    at refcount 1, ``retain`` adds a reference (a radix node adopting the
+    page, or a block table mapping a cached page) and ``release``/``free``
+    drops one; the page returns to the free list with its last reference.
     """
 
     def __init__(self, n_pages: int):
         self.n_pages = n_pages
         self._free: List[int] = list(range(1, n_pages))
-        self._used = np.zeros(n_pages, bool)
+        self._ref = np.zeros(n_pages, np.int32)
 
     @property
     def available(self) -> int:
@@ -133,15 +147,32 @@ class PagePool:
         got = self._free[-n:][::-1] if n else []
         if n:
             del self._free[-n:]
-        self._used[got] = True
+        for p in got:
+            self._ref[p] = 1
         return got
 
-    def free(self, pages) -> None:
+    def retain(self, pages) -> None:
+        """Add one reference to already-allocated pages."""
         for p in pages:
             p = int(p)
-            assert self._used[p], f"free of unallocated page {p}"
-            self._used[p] = False
-            self._free.append(p)
+            assert self._ref[p] > 0, f"retain of unallocated page {p}"
+            self._ref[p] += 1
+
+    def release(self, pages) -> None:
+        """Drop one reference a page; the last reference frees it."""
+        for p in pages:
+            p = int(p)
+            assert self._ref[p] > 0, f"release of unallocated page {p}"
+            self._ref[p] -= 1
+            if self._ref[p] == 0:
+                self._free.append(p)
+        assert len(self._free) <= self.n_pages - 1
+
+    # exclusive owners "free" their pages (refcount 1)
+    free = release
+
+    def refcount(self, page: int) -> int:
+        return int(self._ref[int(page)])
 
 
 # -- per-slot cache surgery ------------------------------------------------------
@@ -265,7 +296,8 @@ class ContinuousBatchingScheduler:
                  debug_invariants: bool = False,
                  device_loop: bool = False, sync_n: int = 8,
                  journal: Optional[TokenJournal] = None,
-                 supervisor: Optional[DegradationSupervisor] = None):
+                 supervisor: Optional[DegradationSupervisor] = None,
+                 prefix_cache: bool = False):
         self.eng = engine
         self.dev = engine.device
         self.capacity = max(1, capacity)
@@ -302,9 +334,25 @@ class ContinuousBatchingScheduler:
                                       np.int32)
             self._n_pages_row = np.zeros(self.capacity, np.int32)
             self._pages_dirty = False
+            # per-slot count of block-table entries that map cached (shared,
+            # read-only) pages: pages [0, n) of the row's table, always
+            # strictly below its write frontier (a lookup never matches
+            # the row's last page), so no decode, rollback or fused write
+            # touches a shared page
+            self._n_shared_row = np.zeros(self.capacity, np.int32)
         else:
             self.cache = engine.model.init_cache(
                 self.capacity, engine.max_len, device=self.dev)
+        if prefix_cache and not self.paged:
+            raise ValueError("prefix_cache=True requires paged KV "
+                             "(pages are the sharing granularity)")
+        self.prefix_cache = (PrefixCache(self.pool, self.page_size)
+                             if prefix_cache else None)
+        self.n_prefix_hits = 0         # admissions served >= 1 cached page
+        self.n_prefix_tokens = 0       # prefill tokens skipped via the cache
+        self.n_checker_clones = 0      # adopt() replays served by a snapshot
+        # engine reset in flight: cached pages are garbage, donate nothing
+        self._in_reset = False
         self.cache["len"] = torch.zeros((self.capacity,), dtype=torch.int32,
                                         device=self.dev)   # ragged
         # host mirror of cache["len"]: the host knows every change to it
@@ -358,6 +406,10 @@ class ContinuousBatchingScheduler:
         self._dev_gather = np.full(self.capacity, OFF_FRONTIER, np.int64)
         # decode_nan plan of one fused block, consulted up front
         self._nan_plan = np.zeros((self.capacity, self.sync_n), bool)
+        # device-sampler staging: per-row temperature and (seed, draw
+        # index) key, persistent so a tick allocates no dense buffer
+        self._samp_temps = np.zeros(self.capacity, np.float32)
+        self._samp_keys = np.zeros((self.capacity, 2), np.int64)
         self._fused: Optional[FusedBlock] = None   # built on the 1st block
         self.n_device_tokens = 0       # tokens committed by fused blocks
         self.n_deadline_clamps = 0     # blocks clamped by a deadline
@@ -389,6 +441,53 @@ class ContinuousBatchingScheduler:
         self._shrunk_tick = False      # alloc_fail fired this tick
 
     # -- public API -------------------------------------------------------------
+
+    def warm(self) -> Dict[str, float]:
+        """Run the offline tree precomputation (paper Algorithm 2) over every
+        registered grammar, then prefill and pin the engine's pinned prompts
+        into the prefix cache."""
+        stats = self.eng.precompute()
+        self._pin_prompts()
+        return stats
+
+    def _pin_prompts(self) -> None:
+        """Prefill each of the engine's pinned prompts once and keep its
+        full pages as pinned radix nodes (never evicted), so the first
+        admission sharing the preamble already skips its prefill.  The row
+        is scattered through slot 0, which must be vacant; its ``len`` is
+        put back to 0 in place (the fused block's graph holds the cache's
+        tensors)."""
+        if self.prefix_cache is None:
+            return
+        eng = self.eng
+        for prompt in eng.pinned_prompts:
+            ids = eng.tok.encode(prompt)
+            n_full = len(ids) // self.page_size
+            if n_full == 0:
+                continue
+            cut = ids[:n_full * self.page_size]
+            probe = self.prefix_cache.lookup(cut, max_pages=n_full)
+            if probe:
+                self.pool.release(probe)     # drop the probe's references
+                if len(probe) == n_full:
+                    continue                 # already cached (a re-warm)
+            pages = self._alloc_pages(n_full)
+            if pages is None:
+                break
+            row_cache = eng.model.init_cache(1, eng.max_len, device=self.dev)
+            _, row_cache = eng._prefill(
+                eng.params, {"tokens": torch.tensor(
+                    [cut], dtype=torch.int64, device=self.dev)}, row_cache)
+            padded = np.zeros(self.max_pages, np.int64)
+            padded[:n_full] = pages
+            assert self.slots[0] is None, "warm() after admission"
+            _scatter_row_paged(self.cache, row_cache, 0,
+                               torch.tensor(padded, device=self.dev),
+                               self.page_size)
+            self.cache["len"][0] = 0
+            self._len_host[0] = 0
+            self.prefix_cache.insert(cut, pages, pin=True)
+            self.pool.release(pages)   # ownership passes to the nodes
 
     def submit(self, request: Union[str, Request],
                extra_inputs=None) -> Session:
@@ -428,8 +527,8 @@ class ContinuousBatchingScheduler:
 
     def stats(self) -> Dict[str, object]:
         """Operational counters for benchmarks and monitoring: the
-        degradation ladder's state, the durability and pressure counters
-        and the tick counters."""
+        degradation ladder's state, the durability, pressure and prefix
+        cache counters and the tick counters."""
         s = self.sup.stats()
         s.update(
             n_engine_resets=self.n_engine_resets,
@@ -447,7 +546,13 @@ class ContinuousBatchingScheduler:
             premask_hits=self.premask_hits,
             premask_skips=self.premask_skips,
             mask_cache_hits=self.mask_cache_hits,
-            status_counts=dict(self.status_counts))
+            status_counts=dict(self.status_counts),
+            n_prefix_hits=self.n_prefix_hits,
+            n_prefix_tokens=self.n_prefix_tokens,
+            n_checker_clones=self.n_checker_clones)
+        if self.prefix_cache is not None:
+            s.update({"prefix_" + k: v
+                      for k, v in self.prefix_cache.stats().items()})
         return s
 
     def step(self) -> List[Session]:
@@ -548,7 +653,6 @@ class ContinuousBatchingScheduler:
         return None
 
     def _admit(self) -> None:
-        eng = self.eng
         while self.waiting and None in self.slots:
             if sum(s is not None for s in self.slots) >= self._cap_eff:
                 break      # capacity shrunk under allocation pressure
@@ -563,55 +667,52 @@ class ContinuousBatchingScheduler:
                 self._finish(sess, status="rejected", error=reason)
                 continue
             page_ids = None
+            cached: List[int] = []
             if self.paged:
                 # +1: the first decode write must fit without a new page
                 n_pg = _ceil_div(len(ids) + 1, self.page_size)
                 if self._inject("page_exhaustion", sess):
                     break      # injected dry pool: backpressure path
-                page_ids = self.pool.alloc(n_pg)
+                if self.prefix_cache is not None and not sess.extra_inputs:
+                    # longest shared whole-page prefix, capped one token
+                    # short of the sequence: the boundary page stays
+                    # private (the copy-on-write barrier by construction)
+                    cached = self.prefix_cache.lookup(
+                        ids, max_pages=(len(ids) - 1) // self.page_size)
+                page_ids = self._alloc_pages(n_pg - len(cached))
                 if page_ids is None:
+                    if cached:
+                        self.pool.release(cached)
                     break          # backpressure: wait for frees (FIFO)
+                page_ids = cached + page_ids
             self.waiting.popleft()
             self._premask.pop(slot, None)
             self._opp_intervened[slot] = False
             t0 = time.perf_counter()
             try:
-                row_cache = eng.model.init_cache(1, eng.max_len,
-                                                 device=self.dev)
-                feed = ids
-                inputs = {}
-                if not eng._needs_refeed and not sess.extra_inputs:
-                    # power-of-two bucket: pads ride beyond the valid
-                    # frontier, the head reads the true last token
-                    p = _bucket_len(len(ids), eng.max_len)
-                    feed = ids + [eng.tok.pad_id] * (p - len(ids))
-                    inputs["length"] = len(ids)
-                inputs["tokens"] = torch.tensor([feed], dtype=torch.int64,
-                                                device=self.dev)
-                if sess.extra_inputs:
-                    inputs.update(sess.extra_inputs)
-                logits, row_cache = eng._prefill(eng.params, inputs,
-                                                 row_cache)
-                if self.paged:
-                    padded = np.zeros(self.max_pages, np.int64)
-                    padded[:len(page_ids)] = page_ids
-                    _scatter_row_paged(
-                        self.cache, row_cache, slot,
-                        torch.tensor(padded, device=self.dev),
-                        self.page_size)
-                    self._page_tbl[slot, :] = 0
-                    self._page_tbl[slot, :len(page_ids)] = page_ids
-                    self._n_pages_row[slot] = len(page_ids)
-                    self._pages_dirty = True
+                if cached:
+                    logits_row = self._cached_prefill(slot, ids, page_ids,
+                                                      len(cached))
                 else:
-                    _scatter_rows(self.cache, row_cache,
-                                  torch.tensor([slot], device=self.dev))
+                    logits_row = self._full_prefill(sess, slot, ids,
+                                                    page_ids)
             except Exception as e:   # quarantined: reject THIS request
                 if self.paged and page_ids:
                     self.pool.free(page_ids)
                 self._fail(sess, f"prefill failed: {e!r}")
                 continue
-            self._logits[slot] = logits[0, -1].to(torch.float32)
+            if cached:
+                self.n_prefix_hits += 1
+                skipped = len(cached) * self.page_size
+                self.n_prefix_tokens += skipped
+                sess.n_cached_tokens += skipped
+            if self.prefix_cache is not None and not sess.extra_inputs:
+                # donate the row's full pages at once: later admissions of
+                # this same sweep (and every future one) share the prefix
+                n_full = min(len(ids) // self.page_size, len(page_ids))
+                self.prefix_cache.insert(ids[:n_full * self.page_size],
+                                         page_ids[:n_full])
+            self._logits[slot] = logits_row.to(torch.float32)
             self._len_host[slot] = len(ids)
             sess.model_time += time.perf_counter() - t0
             sess.n_fwd += 1
@@ -626,11 +727,87 @@ class ContinuousBatchingScheduler:
             self._dev_age[slot] = 0
             if self.journal is not None:
                 self.journal.append({"kind": "admit", "rid": sess.rid,
-                                     "slot": slot, "cached_pages": 0,
+                                     "slot": slot,
+                                     "cached_pages": len(cached),
                                      "cached_checker":
                                          sess.cached_checker})
             if self._inject("prefill_nan", sess):
                 self._logits[slot] = float("nan")
+
+    def _full_prefill(self, sess: Session, slot: int, ids: List[int],
+                      page_ids: Optional[List[int]]) -> torch.Tensor:
+        """Admission without a cache hit: prefill ``ids`` at B=1 and write
+        the row into its slot (its pages on the paged layout).  Returns the
+        last real token's logits row."""
+        eng = self.eng
+        row_cache = eng.model.init_cache(1, eng.max_len, device=self.dev)
+        feed = ids
+        inputs = {}
+        if not eng._needs_refeed and not sess.extra_inputs:
+            # power-of-two bucket: pads ride beyond the valid frontier, the
+            # head reads the true last token
+            p = _bucket_len(len(ids), eng.max_len)
+            feed = ids + [eng.tok.pad_id] * (p - len(ids))
+            inputs["length"] = len(ids)
+        inputs["tokens"] = torch.tensor([feed], dtype=torch.int64,
+                                        device=self.dev)
+        if sess.extra_inputs:
+            inputs.update(sess.extra_inputs)
+        logits, row_cache = eng._prefill(eng.params, inputs, row_cache)
+        if self.paged:
+            padded = np.zeros(self.max_pages, np.int64)
+            padded[:len(page_ids)] = page_ids
+            _scatter_row_paged(self.cache, row_cache, slot,
+                               torch.tensor(padded, device=self.dev),
+                               self.page_size)
+            self._set_row_pages(slot, page_ids, 0)
+        else:
+            _scatter_rows(self.cache, row_cache,
+                          torch.tensor([slot], device=self.dev))
+        return logits[0, -1]
+
+    def _cached_prefill(self, slot: int, ids: List[int],
+                        page_ids: List[int], n_cached: int) -> torch.Tensor:
+        """Admission through a prefix-cache hit: the first ``n_cached``
+        pages of the row's table map shared pages whose K/V is already
+        resident (equal by prefix determinism), so only the tail
+        ``ids[n_cached * page_size:]`` is fed, as one multi-token decode
+        (kernel #1, or #1b for MLA, at S = the tail's bucket) over a B=1
+        view of the batch cache: the view holds the pool leaves
+        themselves, so the tail's K/V is written in place (the fused
+        block's graph holds their addresses), reading the shared prefix
+        through the row's table.  Every write lands at or beyond the
+        boundary page; the bucket's pads past the row's pages go to the
+        trash page.  Returns the last real token's logits row.  Runs from
+        ``_admit`` only (lint rule R6)."""
+        eng = self.eng
+        start = n_cached * self.page_size
+        tail = list(ids[start:])
+        assert tail, "a cache hit must leave a non-empty private tail"
+        p = min(_bucket_len(len(tail), eng.max_len), eng.max_len - start)
+        feed = torch.tensor([tail + [eng.tok.pad_id] * (p - len(tail))],
+                            dtype=torch.int64, device=self.dev)
+        table = np.zeros((1, self.max_pages), np.int32)
+        table[0, :len(page_ids)] = page_ids
+        view = {"len": torch.tensor([start], dtype=torch.int32,
+                                    device=self.dev),
+                "head": self.cache["head"], "tail": self.cache["tail"],
+                "group": self.cache["group"],
+                "pages": torch.from_numpy(table).to(self.dev)}
+        lg, _ = eng._decode(eng.params, view, feed)
+        self.cache["len"][slot] = len(ids)
+        self._set_row_pages(slot, page_ids, n_cached)
+        return lg[0, len(tail) - 1]
+
+    def _set_row_pages(self, slot: int, page_ids: List[int],
+                       n_shared: int) -> None:
+        """Point the host table's row at an admitted row's pages, the first
+        ``n_shared`` of them cache-shared."""
+        self._page_tbl[slot, :] = 0
+        self._page_tbl[slot, :len(page_ids)] = page_ids
+        self._n_pages_row[slot] = len(page_ids)
+        self._n_shared_row[slot] = n_shared
+        self._pages_dirty = True
 
     def _reset_vacant_lens(self) -> None:
         """Pin vacant slots' ragged ``len`` to 0 so the decode kernel's
@@ -664,6 +841,7 @@ class ContinuousBatchingScheduler:
             self._premask.pop(sess.slot, None)
             self._dev_state[sess.slot] = OFF_FRONTIER
             if self.paged:
+                self._insert_prefix(sess)
                 self._free_slot_pages(sess.slot)
             self.slots[sess.slot] = None
             sess.slot = -1
@@ -769,12 +947,21 @@ class ContinuousBatchingScheduler:
         readback: recompute-preempt every resident (youngest first, so the
         oldest lands at the queue front; validated prefixes ride along, so
         outputs are unchanged) and re-initialise the batch cache, the
-        staged logits and the kernels' launch scratch."""
+        staged logits and the kernels' launch scratch.  The prefix cache
+        drops every node first (the re-initialised pool holds none of their
+        contents), so the preemptions release the pages' last references
+        and donate nothing."""
         self.n_engine_resets += 1
         self._fail_log.append((None, f"engine reset: {reason}"))
-        for sess in sorted((s for s in self.slots if s is not None),
-                           key=lambda s: s.t_admit, reverse=True):
-            self._preempt(sess)
+        if self.prefix_cache is not None:
+            self.prefix_cache.reset()
+        self._in_reset = True
+        try:
+            for sess in sorted((s for s in self.slots if s is not None),
+                               key=lambda s: s.t_admit, reverse=True):
+                self._preempt(sess)
+        finally:
+            self._in_reset = False
         eng = self.eng
         # every reference to the old cache goes before the new one is
         # allocated (the refeed snapshot aliases its K/V, the fused block's
@@ -809,7 +996,12 @@ class ContinuousBatchingScheduler:
         Request, replays the validated prefix through a fresh checker
         (a rejection fails the row: the grammar changed under it),
         restores its sampling RNG and queues it: admission re-prefills
-        prompt + prefix as after a recompute preemption."""
+        prompt + prefix as after a recompute preemption.  With the prefix
+        cache, the replay starts from a clone of the longest stored checker
+        snapshot covering a prefix of the journaled tokens (keyed on the
+        grammar's signature, the prompt length and the token ids, so the
+        clone's state is the one the replay would build), and the replayed
+        state is stored for the adoptions after it."""
         self._next_rid = max(self._next_rid, entry.rid + 1)
         if not entry.recoverable:
             sess = self.eng.make_session(entry.rid, entry.prompt)
@@ -841,7 +1033,21 @@ class ContinuousBatchingScheduler:
                                  else st),
                          error=entry.terminal["error"])
             return sess
-        for tok in entry.toks:
+        toks = [int(t) for t in entry.toks]
+        n_adopted = 0
+        sig = self._checker_sig(sess)
+        if self.prefix_cache is not None and sig is not None and toks:
+            got = self.prefix_cache.get_checker(
+                sig, len(sess.prompt_ids), list(sess.prompt_ids) + toks)
+            if got is not None:
+                n_cov, clone = got
+                n_adopted = n_cov - len(sess.prompt_ids)
+                sess.checker = clone
+                sess.out_ids.extend(toks[:n_adopted])
+                sess.budget -= n_adopted
+                sess.cached_checker = True
+                self.n_checker_clones += 1
+        for tok in toks[n_adopted:]:
             try:
                 ok = (sess.checker.advance(int(tok))
                       if sess.checker is not None else True)
@@ -858,6 +1064,11 @@ class ContinuousBatchingScheduler:
             sess.budget -= 1
         sess.n_replayed = len(entry.toks)
         self.n_replayed_tokens += len(entry.toks)
+        if self.prefix_cache is not None and sig is not None \
+                and sess.out_ids:
+            self.prefix_cache.put_checker(
+                sig, len(sess.prompt_ids),
+                list(sess.prompt_ids) + list(sess.out_ids), sess.checker)
         sess.n_draws = entry.n_draws
         if entry.rng_state is not None and sess.decode is not None:
             rng = sess.decode.make_rng()
@@ -879,18 +1090,71 @@ class ContinuousBatchingScheduler:
             self.pool.free(self._page_tbl[slot, :n].tolist())
         self._page_tbl[slot, :] = 0         # vacant entries -> trash page
         self._n_pages_row[slot] = 0
+        self._n_shared_row[slot] = 0
         self._pages_dirty = True
+
+    def _alloc_pages(self, n: int) -> Optional[List[int]]:
+        """``pool.alloc`` with the prefix cache's LRU eviction as the
+        fallback: cache-only pages (refcount 1, unpinned) are reclaimed
+        before admission backpressures or a resident row is preempted.  A
+        page a live block table maps (refcount >= 2) is never taken."""
+        got = self.pool.alloc(n)
+        if got is None and self.prefix_cache is not None:
+            self.prefix_cache.evict(n - self.pool.available)
+            got = self.pool.alloc(n)
+        return got
+
+    def _checker_sig(self, sess: Session) -> Optional[tuple]:
+        """Hashable signature of everything that shapes a session's checker
+        state besides the advanced tokens, or None when the checker is not
+        shareable (other modes, healed checkers, ad-hoc grammar objects
+        without a registered name)."""
+        if sess.checker is None or type(sess.checker) is not DominoDecoder:
+            return None
+        req = sess.request
+        spec = None if req is None else req.constraint
+        if spec is None or not isinstance(spec.grammar, str):
+            return None
+        return (spec.grammar, spec.mode, spec.k, sess.eos_id)
+
+    def _insert_prefix(self, sess: Session) -> None:
+        """Donate a departing row's committed full pages to the radix tree
+        and snapshot its checker at the fork point, so a later request
+        sharing the prefix skips the prefill and (on restart recovery) the
+        ``advance()`` replay.  Teardown only (``_finish``/``_preempt``,
+        lint rule R6); never during an engine reset (the pool's contents
+        are gone) and never from a failed row (its device state is
+        suspect)."""
+        if self.prefix_cache is None or sess.slot < 0 or self._in_reset \
+                or sess.extra_inputs or sess.status == "internal_error":
+            return
+        slot = sess.slot
+        ids = list(sess.prompt_ids) + list(sess.out_ids)
+        n_full = min(len(ids) // self.page_size,
+                     int(self._n_pages_row[slot]))
+        if n_full > 0:
+            self.prefix_cache.insert(
+                ids[:n_full * self.page_size],
+                self._page_tbl[slot, :n_full].tolist())
+        sig = self._checker_sig(sess)
+        if sig is not None and sess.out_ids:
+            self.prefix_cache.put_checker(sig, len(sess.prompt_ids), ids,
+                                          sess.checker)
 
     def _preempt(self, sess: Session) -> None:
         """Recompute preemption: reclaim the row's pages and return the
         request to the FRONT of the waiting queue; re-admission re-prefills
-        prompt + generated prefix and selection resumes where it left."""
+        prompt + generated prefix and selection resumes where it left.
+        With the prefix cache the committed prefix is donated first, so
+        re-admission re-acquires these very pages and re-prefills only the
+        partial tail."""
         slot = sess.slot
         self._premask.pop(slot, None)
         self._dev_state[slot] = OFF_FRONTIER
         if self.paged:
             # (the reference frees unconditionally, which fails an engine
             # reset of dense rows: they hold no pages)
+            self._insert_prefix(sess)
             self._free_slot_pages(slot)
         self.slots[slot] = None
         sess.slot = -1
@@ -926,8 +1190,12 @@ class ContinuousBatchingScheduler:
                     1, sum(s is not None for s in self.slots) - 1)
                 self.n_capacity_shrinks += 1
                 self._shrunk_tick = True
-            elif shortfall <= self.pool.available and not (
+            elif shortfall <= self.pool.available + (
+                    0 if self.prefix_cache is None
+                    else self.prefix_cache.evictable()) and not (
                     shortfall and self._inject("page_exhaustion")):
+                # cache-only pages count as available: _alloc_pages below
+                # reclaims them LRU-first before any preemption
                 break
             victims = [s for s in self.slots if s is not None]
             if not victims:
@@ -935,7 +1203,7 @@ class ContinuousBatchingScheduler:
             self._preempt(max(victims, key=lambda s: s.t_admit))
         for slot, want in need.items():
             have = int(self._n_pages_row[slot])
-            self._page_tbl[slot, have:want] = self.pool.alloc(want - have)
+            self._page_tbl[slot, have:want] = self._alloc_pages(want - have)
             self._n_pages_row[slot] = want
             self._pages_dirty = True
 
@@ -1118,8 +1386,9 @@ class ContinuousBatchingScheduler:
             # per-row temperature and per-row counter-based noise keyed on
             # (seed, draw index), so a row's stream never depends on its
             # batch; equal to the host path below in distribution only
-            temps = np.zeros(self.capacity, np.float32)
-            keys = np.zeros((self.capacity, 2), np.int64)
+            temps, keys = self._samp_temps, self._samp_keys
+            temps[:] = 0.0
+            keys[:] = 0
             for slot in sampled:
                 sess = self.slots[slot]
                 temps[slot] = sess.temperature
@@ -1135,9 +1404,11 @@ class ContinuousBatchingScheduler:
             for slot in sampled:
                 sess = self.slots[slot]
                 m = row_bits.get(slot)
+                # sampling renormalises over a bool mask: the one unpack,
+                # per sampled row only (greedy rows stay packed)
                 toks[slot] = select_token(
                     lg_host[slot],
-                    None if m is None else bitmask.unpack(m, v),
+                    None if m is None else bitmask.unpack(m, v),  # hotpath-lint: allow
                     sess.temperature, sess.rng)
         out: Dict[int, int] = {}
         for slot in occupied:

@@ -431,16 +431,19 @@ def test_single_request_deadline(pair):
 
 
 def test_device_loop_and_prefix_cache_are_not_ported(pair):
-    """The prefix cache is not ported: the port takes none of its
-    arguments.  The fused loop's ``device_loop``/``sync_n`` are taken (an
-    engine without device tables keeps every row on the host path, so the
-    output is the host path's)."""
+    """The prefix cache and the fused loop's arguments are taken:
+    ``prefix_cache=True`` gives the cold run's output (a repeated prompt
+    hits the cache), and an engine without device tables keeps every row
+    on the host path with ``device_loop``/``sync_n``, so the output is the
+    host path's."""
     _, teng = pair()
-    with pytest.raises(TypeError, match="prefix_cache"):
-        teng.generate_batch(["a: "], prefix_cache=True)
-    with pytest.raises(TypeError, match="prefix_cache"):
-        T.ContinuousBatchingScheduler(teng, prefix_cache=True)
-    plain = teng.generate_batch(["a: "])
+    plain = teng.generate_batch(["a: ", "a: "])
+    warm = teng.generate_batch(["a: ", "a: "], page_size=2,
+                               prefix_cache=True)
+    assert [r.token_ids for r in warm] == [r.token_ids for r in plain]
+    assert teng.last_batch_stats["n_prefix_hits"] > 0
+    sched = T.ContinuousBatchingScheduler(teng, prefix_cache=True)
+    assert sched.prefix_cache is not None
     for kw in (dict(device_loop=True), dict(sync_n=4)):
         got = teng.generate_batch(["a: "], **kw)
         assert got[0].token_ids == plain[0].token_ids

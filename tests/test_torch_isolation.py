@@ -29,6 +29,7 @@ COPIED = (sorted(p.relative_to(SRC / "repro")
                  for p in (SRC / "repro" / d).glob("*.py"))
           + [pathlib.Path(p) for p in ("serving/request.py",
                                        "serving/session.py",
+                                       "serving/prefix_cache.py",
                                        "analysis/__init__.py",
                                        "analysis/cli.py",
                                        "analysis/report.py", "analyze.py")])

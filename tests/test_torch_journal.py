@@ -12,6 +12,7 @@ CPU.  2 layers, d_model 64, float32 on the CPU."""
 import dataclasses
 import os
 import pathlib
+import re
 import signal
 import subprocess
 import sys
@@ -226,16 +227,24 @@ def _ids(out):
     return [ln for ln in out.splitlines() if ln.startswith("IDS ")]
 
 
-def test_serve_cli_sigkill_drill(tmp_path):
+@pytest.mark.parametrize("extra", [
+    [], ["--prompts", "5", "--page-size", "8", "--prefix-cache"]],
+    ids=["plain", "prefix-cache"])
+def test_serve_cli_sigkill_drill(tmp_path, extra):
     """The restart drill through the port's CLI: a reference run, a
     journaled run killed by SIGKILL after its 2nd fsync, and a restore
-    whose ``IDS`` lines equal the reference run's."""
-    ref = _serve("--print-ids")
+    whose ``IDS`` lines equal the reference run's; the second case serves
+    through the prefix cache (a repeated prompt and 8-token pages make
+    whole-page hits certain), as the reference's restart drill does."""
+    ref = _serve("--print-ids", *extra)
     assert ref.returncode == 0, ref.stderr
     path = str(tmp_path / "j")
-    crash = _serve("--journal", path, "--crash-after-syncs", "2")
+    crash = _serve("--journal", path, "--crash-after-syncs", "2", *extra)
     assert crash.returncode == -signal.SIGKILL, crash.stderr
-    rest = _serve("--journal", path, "--restore", "--print-ids")
+    rest = _serve("--journal", path, "--restore", "--print-ids", *extra)
     assert rest.returncode == 0, rest.stderr
     assert _ids(rest.stdout) == _ids(ref.stdout) and _ids(ref.stdout)
     assert "resumed live" in rest.stdout
+    if extra:
+        hits = re.search(r"\[prefix cache: (\d+) hits", ref.stdout)
+        assert hits and int(hits.group(1)) > 0

@@ -1066,3 +1066,145 @@ def test_device_sampler_on_card(cuda_device):
                                   torch.zeros(4, device=cuda_device),
                                   keys[:4])
     assert torch.equal(greedy, masked_argmax(lg[:4], words[:4])[0])
+
+
+# -- the prefix cache's cached prefill ----------------------------------------
+
+
+def _tiny_cfg(arch, page_vocab=128):
+    """A small float32 paged config: GQA attention, or MLA."""
+    extra = {} if arch == "attn" else dict(
+        family="moe", n_kv_heads=4, group=("mla",),
+        mla=MLAConfig(q_lora_rank=32, kv_lora_rank=16, qk_nope_head_dim=16,
+                      qk_rope_head_dim=8, v_head_dim=16))
+    return ModelConfig(**dict(dict(
+        arch_id="tc", family="dense", n_layers=2, d_model=64, n_heads=4,
+        n_kv_heads=2, d_ff=128, vocab_size=page_vocab, dtype="float32",
+        max_seq_len=256), **extra))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["attn", "mla"])
+@pytest.mark.parametrize("page_size", [8, 16])
+@pytest.mark.parametrize("s", [5, 16, 33])
+def test_cached_prefill_kernel_route_matches_plain(cuda_device, arch,
+                                                   page_size, s):
+    """The scheduler's cached prefill at the model level: a tail window of
+    S tokens (S - 3 real, then 3 pads, as in a length bucket) fed as one
+    decode over a B=1 view of the pool, whose table maps two shared pages
+    (another row's prefix), then the row's private pages (the real tail
+    plus one), then zero entries (the trash page).  Through #1 (or #1b)
+    the logits agree with the plain path's, and on the real tokens with a
+    cold decode of the whole sequence; the shared pages are not written,
+    and pad writes past the private pages land on the trash page only."""
+    cfg = _tiny_cfg(arch)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(0)
+    plain = build_model(cfg)
+    params = plain.init(gen, device=cuda_device)
+    kern = build_model(dataclasses.replace(cfg, use_pallas_kernels=True))
+    ps, n_shared, n_pages, mp = page_size, 2, 24, 12
+    start = n_shared * ps
+    n_real = s - 3
+    n_priv = -(-(n_real + 1) // ps)     # admission's +1: the first decode
+    toks = torch.from_numpy(np.random.default_rng(s + ps).integers(
+        0, 128, (1, start + s))).to(cuda_device)
+    shared = [5, 2]
+    priv = [9, 4, 7, 13, 11][:n_priv]
+    # the donor row writes the shared prefix into pages 5 and 2
+    pool = plain.init_cache(1, mp * ps, page_size=ps, n_pages=n_pages,
+                            device=cuda_device)
+    pool["pages"] = torch.zeros((1, mp), dtype=torch.int32,
+                                device=cuda_device)
+    pool["pages"][0, :n_shared] = torch.tensor(shared, dtype=torch.int32)
+    pool["len"] = torch.zeros((1,), dtype=torch.int32, device=cuda_device)
+    plain.decode_step(params, pool, toks[:, :start])
+
+    def leaves(c):
+        """Every pool leaf with its pages on axis 0 (a group's leaves carry
+        a leading reps axis)."""
+        return [x for part in ("head", "tail") for blk in c[part]
+                for x in blk.values()] + [
+            x.transpose(0, 1) for blk in c["group"].values()
+            for x in blk.values()]
+
+    table = torch.zeros((1, mp), dtype=torch.int32, device=cuda_device)
+    table[0, :n_shared + n_priv] = torch.tensor(shared + priv,
+                                                dtype=torch.int32)
+    out = {}
+    for name, model in (("plain", plain), ("kernel", kern)):
+        c = {k: v for k, v in pool.items() if k not in ("head", "tail",
+                                                       "group")}
+        c["head"] = [{n: x.clone() for n, x in blk.items()}
+                     for blk in pool["head"]]
+        c["tail"] = [{n: x.clone() for n, x in blk.items()}
+                     for blk in pool["tail"]]
+        c["group"] = {k: {n: x.clone() for n, x in blk.items()}
+                      for k, blk in pool["group"].items()}
+        before = [x.clone() for x in leaves(c)]
+        view = dict(c, len=torch.tensor([start], dtype=torch.int32,
+                                        device=cuda_device), pages=table)
+        wrapper = (attn_kernel.decode_attention_cuda if arch == "attn"
+                   else attn_kernel.decode_attention_split_cuda)
+        n0 = wrapper.launches
+        lg, view = model.decode_step(params, view, toks[:, start:])
+        if name == "kernel":
+            assert wrapper.launches == n0 + cfg.n_layers
+        else:
+            assert wrapper.launches == n0
+        assert int(view["len"][0]) == start + s
+        untouched = [p for p in range(n_pages)
+                     if p not in priv and p != 0]
+        for a, b in zip(before, leaves(c)):
+            assert torch.equal(a[untouched], b[untouched])
+        out[name] = lg
+    torch.testing.assert_close(out["kernel"], out["plain"], atol=1e-4,
+                               rtol=1e-4)
+    cold = plain.init_cache(1, mp * ps, device=cuda_device)
+    cold["len"] = torch.zeros((1,), dtype=torch.int32, device=cuda_device)
+    lg_cold, _ = plain.decode_step(params, cold, toks)
+    torch.testing.assert_close(out["kernel"][:, :n_real],
+                               lg_cold[:, start:start + n_real], atol=1e-4,
+                               rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cached_admission_keeps_the_recorded_graph(cuda_device):
+    """Certified greedy rows with the prefix cache and the device loop on
+    the card: admissions through the cache that arrive between fused
+    blocks write the pool, table and lengths in place, so the one recorded
+    graph stays; the ids equal the host loop's without the cache."""
+    from repro_torch.serving import (ConstraintSpec, ContinuousBatchingScheduler,
+                                     DecodeParams, Request)
+    eng = _fused_engine(cuda_device, "attn")
+    pre = "shared device preamble common to every request: "
+    reqs = [Request(pre + f"d{i} ", ConstraintSpec(grammar="default",
+                                                   mode="domino"),
+                    DecodeParams(max_tokens=12)) for i in range(5)]
+    host = ContinuousBatchingScheduler(eng, capacity=2, page_size=8)
+    want = [host.submit(r) for r in reqs]
+    host.run()
+    sched = ContinuousBatchingScheduler(eng, capacity=2, page_size=8,
+                                        prefix_cache=True, device_loop=True,
+                                        sync_n=4, debug_invariants=True)
+    seen = []
+    orig = ContinuousBatchingScheduler._cached_prefill
+
+    def cached_prefill(self, *args):
+        seen.append(self._fused is not None
+                    and self._fused.graph is not None)
+        return orig(self, *args)
+    ContinuousBatchingScheduler._cached_prefill = cached_prefill
+    try:
+        got = [sched.submit(r) for r in reqs]
+        sched.run()
+    finally:
+        ContinuousBatchingScheduler._cached_prefill = orig
+    assert [s.result.token_ids for s in got] == \
+        [s.result.token_ids for s in want]
+    fb = sched._fused
+    assert any(seen) and sched.n_prefix_hits > 0
+    assert fb.n_records == 1 and fb.n_replays >= 2
+    assert sched.n_device_tokens > 0 and sched.n_engine_resets == 0
+    sched.prefix_cache.reset()
+    assert sched.pool.available == sched.n_pages - 1
