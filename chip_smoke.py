@@ -141,7 +141,29 @@ non-zero without the final result line):
     replayed block under ``set_sync_debug_mode("error")``; (d) a journaled
     warm run crashed and restored with the cache (checker clones, admit
     records with cached pages, ids equal), then the serve CLI's SIGKILL
-    drill with ``--prefix-cache --page-size 8 --prompts 5``.
+    drill with ``--prefix-cache --page-size 8 --prompts 5``;
+10. training: (a) stablelm-1.6b at its published width and depth (1.2 B
+    parameters with the trainer's ~512-token vocabulary) trained 20 AdamW
+    steps in float32 through ``repro_torch.launch.train`` on JSON LM rows at
+    batch 8 x seq 128: the losses finite and falling; the median step time
+    against its bound (6 x params x tokens at 67 TFLOP/s), tokens/s and
+    peak memory printed; its params saved to a temporary checkpoint,
+    removed at the end of the phase; (b) that checkpoint served by
+    ``python -m repro_torch.launch.serve --no-smoke --checkpoint DIR
+    --kernels`` with the DOMINO JSON grammar (every output advances a fresh
+    ``DominoDecoder``), then in process in float32 through #1 paged and #2
+    against the plain path (ids equal under the margin rule, launches
+    checked as in phase 5); (c) the paper's ``bench-2l`` model trained to
+    ``benchmarks/common.py``'s recipe (500 steps, two task batches to one
+    JSON batch) and held to ``tests/test_system.py``'s bars: the loss below
+    0.7 of the first, a valid constrained output, speculative ids equal to
+    plain ids in no more forwards; accepted proposals and the task accuracy
+    of constrained against unconstrained decoding printed; (d)
+    ``blocked_attention``'s backward at S = T = 2048 against naive autograd
+    (atol 2e-4, rtol 1e-3; both peaks printed), every kernel wrapper
+    refusing an operand that requires grad, and the falcon-mamba-7b and
+    zamba2-1.2b smoke configs refusing to train through the scans, then
+    taking a step without them.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -3332,6 +3354,425 @@ def phase_prefix(torch, card, shared):
     return entry
 
 
+# -- phase 10: training ---------------------------------------------------------
+
+TRAIN_ARCH = "stablelm-1.6b"
+TRAIN_STEPS = 20
+TRAIN_WARMUP = 2                 # steps left out of the median step time
+TRAIN_BATCH, TRAIN_SEQ = 8, 128
+# the JAX package's trainer default of 3e-3 is tuned for the smoke configs;
+# at 1.2 B parameters AdamW's first steps move every weight by ~lr
+TRAIN_LR = 3e-4
+# the paper's bench model and recipe, as ``benchmarks/common.py`` trains it
+# (that module imports jax, which the card's machine does not have)
+BENCH_CFG = dict(n_layers=2, d_model=128, n_heads=4, n_kv_heads=4, d_ff=256,
+                 dtype="float32", max_seq_len=1024)
+BENCH_STEPS, BENCH_SEQ, BENCH_BATCH = 500, 192, 8
+BENCH_EVAL = 32                  # easy task prompts for the accuracy print
+FLASH_S = 2048                   # above attention_any's 1024^2 threshold
+FLASH_TOL = dict(atol=2e-4, rtol=1e-3)   # tests/test_models.py's
+
+
+def _train_full_width(torch, card, ckpt):
+    """(a): the trainer CLI's ``main`` at stablelm-1.6b's published width
+    and depth in float32 on JSON LM rows; params saved to ``ckpt``."""
+    import shutil
+    from repro_torch.launch import train
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = train.main(["--arch", TRAIN_ARCH, "--dtype", "float32",
+                      "--steps", str(TRAIN_STEPS),
+                      "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                      "--lr", str(TRAIN_LR), "--save", str(ckpt)])
+    peak = torch.cuda.max_memory_allocated() - base
+    losses, cfg = out["losses"], out["cfg"]
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"(a) losses not finite and falling: {losses}")
+    steps = sorted(out["step_s"][TRAIN_WARMUP:])
+    med_ms = steps[len(steps) // 2] * 1e3
+    tokens = out["tokens_per_step"]
+    n = out["n_params"]
+    bound, _ = bound_ms(0, 6 * n * tokens, "float32")
+    free = shutil.disk_usage(ckpt).free
+    log(f"[train] (a) {describe(cfg)}: {n / 1e9:.3f} B parameters, "
+        f"{TRAIN_STEPS} AdamW steps (wsd, lr {TRAIN_LR:g}, warmup "
+        f"{max(1, TRAIN_STEPS // 10)}) at batch {TRAIN_BATCH} x seq "
+        f"{TRAIN_SEQ} of JSON LM rows in {cfg.dtype}, the group "
+        f"rematerialized, TF32 off; "
+        f"no depth cut")
+    log(f"[train] (a) loss {losses[0]:.4f} -> {losses[-1]:.4f}; step "
+        f"{med_ms:.1f} ms (median of steps {TRAIN_WARMUP}..{TRAIN_STEPS - 1}"
+        f"; min {steps[0] * 1e3:.1f}, max {steps[-1] * 1e3:.1f}) against a "
+        f"bound of {bound:.1f} ms (6 x params x tokens at 67 TFLOP/s f32); "
+        f"{tokens / (med_ms / 1e3):.0f} tokens/s; peak "
+        f"{peak / 1e9:.2f} GB allocated above the phase's start; on {card}")
+    ck_bytes = sum(p.stat().st_size for p in pathlib.Path(ckpt).iterdir())
+    log(f"[train] (a) checkpoint {ck_bytes / 1e9:.2f} GB written "
+        f"({free / 1e9:.0f} GB free after it)")
+    del out
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms": med_ms, "bound_ms": bound,
+            "tokens_per_s": tokens / (med_ms / 1e3), "peak_gb": peak / 1e9,
+            "n_params": n}
+
+
+def _serve_checkpoint(torch, card, ckpt):
+    """(b): the serve CLI on the checkpoint through the kernels, then in
+    process in float32 through the kernels against the plain path."""
+    import dataclasses
+    import os
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import grammars
+    from repro_torch.core.domino import DominoDecoder
+    from repro_torch.models import build_model
+    from repro_torch.serving import (ConstraintSpec, DecodeParams, Request,
+                                     ServingEngine)
+    from repro_torch.tokenizer import BPETokenizer
+    from repro_torch.training import checkpoint
+
+    tok = BPETokenizer.load(os.path.join(ckpt, "tokenizer.json"))
+    json_g = grammars.load("json")
+
+    def check_valid(ids_list, what):
+        for i, ids in enumerate(ids_list):
+            d = DominoDecoder(json_g, list(tok.vocab), tok.eos_id)
+            if not all(d.advance(t) for t in ids):
+                raise AssertionError(f"{what}: request {i} leaves the JSON "
+                                     "grammar")
+
+    argv = ["--arch", TRAIN_ARCH, "--no-smoke", "--checkpoint", str(ckpt),
+            "--kernels", "--grammar", "json", "--mode", "domino",
+            "--prompts", str(N_REQUESTS), "--slots", str(N_REQUESTS),
+            "--max-tokens", str(MAX_TOKENS), "--print-ids"]
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve"]
+                         + argv, cwd=ROOT, capture_output=True, text=True,
+                         timeout=300, env=dict(os.environ,
+                                               PYTHONPATH=str(ROOT / "src")))
+    if out.returncode != 0:
+        raise AssertionError(f"(b) serve CLI failed: {out.stderr[-2000:]}")
+    cli_ids = [[int(t) for t in ln.split()[2:]]
+               for ln in out.stdout.splitlines() if ln.startswith("IDS ")]
+    if len(cli_ids) != N_REQUESTS:
+        raise AssertionError(f"(b) serve CLI printed {len(cli_ids)} IDS "
+                             f"lines: {out.stdout[-2000:]}")
+    check_valid(cli_ids, "(b) serve CLI")
+    outs = [ln for ln in out.stdout.splitlines() if "out[" in ln]
+    log(f"[train] (b) python -m repro_torch.launch.serve {' '.join(argv)}: "
+        f"{len(cli_ids)} outputs valid under a fresh DominoDecoder, "
+        f"{sum(map(len, cli_ids))} tokens, {time.perf_counter() - t0:.1f}s "
+        f"for the process; first: {outs[0].strip()[:160] if outs else ''}")
+
+    # in process, float32: kernels against plain on the same params
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              vocab_size=tok.vocab_size, dtype="float32",
+                              use_pallas_kernels=True)
+    model_k = build_model(cfg)
+    params, _, meta = checkpoint.load(ckpt, model_k, "cuda")
+    model_p = build_model(dataclasses.replace(cfg, use_pallas_kernels=False))
+    reqs = [Request(PROMPTS[i % len(PROMPTS)],
+                    ConstraintSpec(grammar="json", mode="domino"),
+                    DecodeParams(max_tokens=MAX_TOKENS, seed=i))
+            for i in range(N_REQUESTS)]
+    engines = []
+    trees = None
+    for model in (model_k, model_p):
+        eng = ServingEngine(model, params, tok, max_len=MAX_LEN,
+                            device="cuda")
+        trees = eng.register_grammar("json", json_g, tree_cache=trees)
+        engines.append(eng)
+    eng_k, eng_p = engines
+    with ForwardCount(eng_k) as fwd:
+        reset_counts()
+        got = eng_k.generate_batch(reqs, max_batch=N_REQUESTS,
+                                   page_size=PAGE_SIZE)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    check_launches(cfg, counts, fwd, "(b) kernels")
+    reset_counts()
+    want = eng_p.generate_batch(reqs, max_batch=N_REQUESTS,
+                                page_size=PAGE_SIZE)
+    if read_counts()["decode_attention"]:
+        raise AssertionError(f"(b) the plain path launched {read_counts()}")
+    check_valid([r.token_ids for r in got], "(b) kernels")
+    n_tie = same_ids(torch, eng_p, reqs, got, want, "(b) kernels vs plain")
+    log(f"[train] (b) in process, float32, meta {meta}: kernels == plain "
+        f"({n_tie} near-tie divergences); statuses "
+        f"{[r.status for r in got]}; launches decode_attention "
+        f"{counts['decode_attention']} (paged), masked_argmax_packed "
+        f"{counts['masked_argmax_packed']} over {fwd.prefill} prefills and "
+        f"{fwd.n_decode} decode forwards; on {card}")
+    del engines, eng_k, eng_p, params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _bench_tokenizer():
+    """``benchmarks/common.py:get_tokenizer``'s recipe."""
+    import random
+
+    from repro_torch.core import grammars
+    from repro_torch.core.sampling import GrammarSampler
+    from repro_torch.tokenizer import train_bpe
+    from repro_torch.training.data import few_shot_prefix
+    corpus = b""
+    for name in ("json", "json_gsm8k", "c", "xml_schema"):
+        corpus += GrammarSampler(grammars.load(name), seed=13).corpus(250)
+        corpus += b"\n"
+    corpus += few_shot_prefix(random.Random(0), 60, easy=True).encode()
+    return train_bpe(corpus, vocab_size=600)
+
+
+def _bench_model(torch, card):
+    """(c): ``bench-2l`` trained to ``benchmarks/common.py``'s recipe, then
+    ``tests/test_system.py``'s three bars on the card."""
+    import random
+
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.core import grammars
+    from repro_torch.core.domino import DominoDecoder
+    from repro_torch.models import build_model
+    from repro_torch.serving import (ConstraintSpec, DecodeParams,
+                                     EngineConfig, Request, ServingEngine)
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.data import (GrammarLMDataset, TaskDataset,
+                                           evaluate_answer, few_shot_prefix,
+                                           make_task_example)
+    from repro_torch.training.train_loop import (detached, make_train_step,
+                                                 to_device)
+
+    t0 = time.perf_counter()
+    tok = _bench_tokenizer()
+    cfg = ModelConfig(arch_id="bench-2l", family="dense",
+                      vocab_size=tok.vocab_size, **BENCH_CFG)
+    model = build_model(cfg)
+    params = model.init(device="cuda")
+    step = make_train_step(model, opt.AdamWConfig(
+        lr=3e-3, schedule="wsd", warmup_steps=10, total_steps=BENCH_STEPS))
+    state = opt.init_state(params)
+    task = TaskDataset(tok, seq_len=BENCH_SEQ, few_shot=1,
+                       easy=True).batches(BENCH_BATCH)
+    lm = GrammarLMDataset(tok, "json", seq_len=BENCH_SEQ).batches(BENCH_BATCH)
+    losses = []
+    for i in range(BENCH_STEPS):
+        src = task if i % 3 else lm     # 2/3 task, 1/3 free-form JSON
+        params, state, metrics = step(params, state,
+                                      to_device(next(src), "cuda"))
+        losses.append(metrics["loss"])
+    losses = [float(x) for x in losses]
+    params = detached(params)
+    train_s = time.perf_counter() - t0
+    if not losses[-1] < 0.7 * losses[0]:
+        raise AssertionError(f"(c) loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+                             "not below 0.7 of the first")
+    gsm = grammars.load("json_gsm8k")
+    eng = ServingEngine(model, params, tok, gsm,
+                        EngineConfig(mode="domino", max_tokens=48),
+                        max_len=512, device="cuda")
+    r = eng.generate('Q: compute 3 + 4\nA: ')
+    d = DominoDecoder(gsm, list(tok.vocab), tok.eos_id)
+    if not all(d.advance(t) for t in r.token_ids) \
+            or (r.finished and not d.eos_legal()):
+        raise AssertionError(f"(c) constrained output invalid: {r.text!r}")
+    plain = ServingEngine(model, params, tok, gsm,
+                          EngineConfig(mode="domino", max_tokens=40),
+                          max_len=512, device="cuda")
+    r0 = plain.generate('Q: compute 5 + 2\nA: ')
+    spec = ServingEngine(model, params, tok, gsm,
+                         EngineConfig(mode="domino", speculative=True,
+                                      spec_s=8, spec_threshold=0.4,
+                                      max_tokens=40),
+                         max_len=512, device="cuda")
+    spec.generate('Q: compute 5 + 2\nA: ')     # prior formation
+    r1 = spec.generate('Q: compute 5 + 2\nA: ')
+    if r1.token_ids != r0.token_ids \
+            or r1.n_forward_passes > r0.n_forward_passes:
+        raise AssertionError(f"(c) speculation: ids equal "
+                             f"{r1.token_ids == r0.token_ids}, forwards "
+                             f"{r1.n_forward_passes} vs {r0.n_forward_passes}")
+    n_verify = max(1, r1.n_forward_passes - 1)      # after the prefill
+    n_params = sum(p.numel() for p in _leaves(params))
+    log(f"[train] (c) bench-2l ({n_params / 1e6:.2f} M parameters, vocab "
+        f"{tok.vocab_size}): {BENCH_STEPS} steps in "
+        f"{train_s:.1f}s, loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+        f"({losses[-1] / losses[0]:.3f} of the first); constrained output "
+        f"valid ({r.n_tokens} tokens, {r.text[:60]!r}); speculative ids == "
+        f"plain in {r1.n_forward_passes} forwards against "
+        f"{r0.n_forward_passes}, {r1.n_spec_accepted}/{r1.n_spec_proposed} "
+        f"proposals accepted, {r1.n_tokens / n_verify:.2f} tokens a forward "
+        f"after the prefill "
+        f"({r0.n_tokens / max(1, r0.n_forward_passes - 1):.2f} plain); on "
+        f"{card}")
+
+    # task accuracy, constrained against unconstrained (no bar)
+    rng = random.Random(1)
+    exs = []
+    for _ in range(BENCH_EVAL):
+        ex = make_task_example(rng, easy=True)
+        exs.append((few_shot_prefix(rng, 1, easy=True) + ex.prompt,
+                    ex.answer_value))
+    acc = {}
+    for mode in ("domino", "unconstrained"):
+        e = ServingEngine(model, params, tok, gsm, max_len=512, device="cuda")
+        spec_c = ConstraintSpec() if mode == "unconstrained" else \
+            ConstraintSpec(grammar="default", mode="domino")
+        res = e.generate_batch([Request(p, spec_c,
+                                        DecodeParams(max_tokens=96))
+                                for p, _ in exs], max_batch=8)
+        acc[mode] = (sum(evaluate_answer(r.text) == v
+                         for r, (_, v) in zip(res, exs)),
+                     sum(evaluate_answer(r.text) is not None for r in res))
+    log(f"[train] (c) task accuracy over {BENCH_EVAL} easy prompts "
+        f"(few-shot 1): constrained {acc['domino'][0]}/{BENCH_EVAL} "
+        f"({acc['domino'][1]} parsable), unconstrained "
+        f"{acc['unconstrained'][0]}/{BENCH_EVAL} "
+        f"({acc['unconstrained'][1]} parsable)")
+    return {"losses": (losses[0], losses[-1]),
+            "forwards": (r1.n_forward_passes, r0.n_forward_passes),
+            "accepted": (r1.n_spec_accepted, r1.n_spec_proposed),
+            "accuracy": acc}
+
+
+def _guard_calls(torch):
+    """Each kernel wrapper with small valid operands on the card, the first
+    float operand requiring grad."""
+    w = _wrappers()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+
+    def f(*shape, grad=False):
+        return torch.randn(shape, generator=gen,
+                           device="cuda").requires_grad_(grad)
+
+    lens = torch.tensor([4], dtype=torch.int32, device="cuda")
+    lat = f(1, 8, 1, 16)
+    return {
+        "decode_attention": (f(1, 1, 1, 1, 16, grad=True), f(1, 8, 1, 16),
+                             f(1, 8, 1, 16), lens),
+        "decode_attention_split": (f(1, 1, 1, 2, 16, grad=True), lat, lat,
+                                   f(1, 1, 1, 2, 8), f(1, 8, 1, 8), lens),
+        "masked_argmax_packed": (f(1, 64, grad=True), torch.full(
+            (1, 2), -1, dtype=torch.int32, device="cuda")),
+        "masked_argmax_bytes": (f(1, 64, grad=True), torch.ones(
+            (1, 64), dtype=torch.bool, device="cuda")),
+        "mamba_scan": (f(1, 2, 4, grad=True), f(1, 2, 4), f(1, 2, 4),
+                       f(1, 2, 4), -f(4, 4).abs(), f(1, 4, 4)),
+        "ssd_scan": (f(1, 2, 1, 8, grad=True), f(1, 2, 8), f(1, 2, 8),
+                     -f(1, 2, 1).abs(), f(1, 2, 1).abs(), f(1, 1, 8, 8)),
+    }, w
+
+
+def _flash_and_guards(torch, card):
+    """(d): the flash backward at S = T = 2048 against naive autograd; the
+    grad guard of every wrapper; SSM training with the kernels refused."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.flash import blocked_attention, naive_attention
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_loop import make_train_step, to_device
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    b, g, qh, d = 1, 4, 2, 64
+    q = torch.randn((b, FLASH_S, g, qh, d), generator=gen, device="cuda")
+    k = torch.randn((b, FLASH_S, g, d), generator=gen, device="cuda")
+    v = torch.randn((b, FLASH_S, g, d), generator=gen, device="cuda")
+    pos = torch.arange(FLASH_S, dtype=torch.int32, device="cuda").expand(
+        b, FLASH_S)
+    grads, peaks = [], []
+    for fn in (blocked_attention, naive_attention):
+        qq, kk, vv = (x.detach().clone().requires_grad_(True)
+                      for x in (q, k, v))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = fn(qq, kk, vv, pos, pos)
+        grads.append(torch.autograd.grad((out ** 2).sum(), (qq, kk, vv)))
+        torch.cuda.synchronize()
+        peaks.append((torch.cuda.max_memory_allocated() - base) / 1e6)
+        del out
+    err = 0.0
+    for a, c in zip(*grads):
+        bad = (a - c).abs() > FLASH_TOL["atol"] + FLASH_TOL["rtol"] * c.abs()
+        if bool(bad.any()):
+            raise AssertionError(f"(d) flash grads disagree at "
+                                 f"{int(bad.sum())} elements")
+        err = max(err, float((a - c).abs().max()))
+    log(f"[train] (d) blocked_attention backward at S = T = {FLASH_S} "
+        f"(B={b} G={g} Qh={qh} D={d} f32, tiles 512 x 1024) == naive "
+        f"autograd within atol 2e-4 rtol 1e-3 (max abs err {err:.2e}); peak "
+        f"above the inputs {peaks[0]:.1f} MB against {peaks[1]:.1f} MB; on "
+        f"{card}")
+
+    calls, wrappers = _guard_calls(torch)
+    for name, args in calls.items():
+        before = wrappers[name].launches
+        try:
+            wrappers[name](*args)
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"(d) {name} launched on an operand that "
+                                 "requires grad")
+        if wrappers[name].launches != before:
+            raise AssertionError(f"(d) {name} counted a refused launch")
+    log(f"[train] (d) every kernel wrapper refuses an operand that requires "
+        f"grad: {', '.join(calls)}")
+
+    for arch in ("falcon-mamba-7b", "zamba2-1.2b"):
+        cfg = dataclasses.replace(get_config(arch, smoke=True),
+                                  use_pallas_kernels=True)
+        model = build_model(cfg)
+        params = model.init(device="cuda")
+        toks = torch.randint(0, cfg.vocab_size, (2, 33), generator=gen,
+                             device="cuda", dtype=torch.int32)
+        try:
+            model.loss(params, {"tokens": toks})
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"(d) {arch}: loss ran with the kernels")
+        plain = build_model(dataclasses.replace(cfg, use_pallas_kernels=False))
+        _, _, met = make_train_step(plain, opt.AdamWConfig())(
+            params, opt.init_state(params), to_device(
+                {"tokens": toks.cpu().numpy()}, "cuda"))
+        if not math.isfinite(float(met["loss"])):
+            raise AssertionError(f"(d) {arch}: step loss {met['loss']}")
+        log(f"[train] (d) {arch} smoke: loss with use_pallas_kernels "
+            f"refused; one step with it off, loss {float(met['loss']):.4f}")
+    return {"flash_err": err, "flash_peak_mb": peaks}
+
+
+def phase_training(torch, card):
+    """Phase 10: (a) stablelm-1.6b trained at full width, (b) its checkpoint
+    served, (c) the bench model, (d) the flash backward and the guards."""
+    import shutil
+    import tempfile
+    ckpt = pathlib.Path(tempfile.mkdtemp(prefix="ck-"))
+    try:
+        t0 = time.perf_counter()
+        a = _train_full_width(torch, card, ckpt)
+        log(f"[train] (a) {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        _serve_checkpoint(torch, card, ckpt)
+        log(f"[train] (b) {time.perf_counter() - t0:.1f}s")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = time.perf_counter()
+    c = _bench_model(torch, card)
+    log(f"[train] (c) {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    d = _flash_and_guards(torch, card)
+    log(f"[train] (d) {time.perf_counter() - t0:.1f}s")
+    return {"a": a, "c": c, "d": d}
+
+
 def log_prefix_entry(name, e):
     log(f"[kernel] {name} prefix ({e['launches']} launches in the warm run, "
         f"{e['prefill_launches']} on cached prefills, {e['dtype']}, "
@@ -3405,6 +3846,7 @@ def main() -> int:
                         attn_long, split_long, argmax_long)
         timed("faults and durability", phase_faults, torch, card, shared)
         prefix = timed("prefix cache", phase_prefix, torch, card, shared)
+        timed("training", phase_training, torch, card)
         for k in kernels:
             if k["name"] == "decode_attention":
                 k["prefix"] = prefix

@@ -34,6 +34,20 @@ build_seconds: Optional[float] = None   # wall time of this process's build
 build_log: str = ""                     # nvcc/ptxas output of that build
 
 
+def refuse_grad(name: str, *operands) -> None:
+    """Raise if autograd would record this launch: the kernels write their
+    outputs through raw pointers, which autograd does not see, and none has
+    a backward, so a gradient through one would be silently wrong."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in operands):
+        raise RuntimeError(
+            f"{name}: an operand requires grad, and this kernel has no "
+            "backward; serve detached params (tensor.detach()) or run the "
+            "forward under torch.no_grad(), and train with "
+            "use_pallas_kernels=False")
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:

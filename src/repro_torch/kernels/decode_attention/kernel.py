@@ -79,6 +79,7 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with more than one split the call allocates float32 scratch for the
     splits' partial states, and takes one int32 counter a (row, group, row
     tile) from ``_counters``.  It reads nothing back to the host."""
+    build.refuse_grad("decode_attention_cuda", q, k, v)
     _check_operands("decode_attention_cuda", q, k, v)
     if q.dim() != 5 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("decode_attention_cuda: q (B,S,G,Qh,D) and k/v "
@@ -152,6 +153,7 @@ def decode_attention_split_cuda(q: torch.Tensor, k: torch.Tensor,
     second kernel merges.  float32 runs on the CUDA cores, unsplit.  It
     reads nothing back to the host."""
     name = "decode_attention_split_cuda"
+    build.refuse_grad(name, q, k, v, q2, k2)
     _check_operands(name, q, k, q2, k2)
     if q.dim() != 5 or q2.dim() != 5 or k.dim() != 4 or k2.dim() != 4:
         raise ValueError(f"{name}: q/q2 (B,S,G,Qh,D) and k/k2 (rows, T, G, "

@@ -21,6 +21,7 @@ def mamba_scan_cuda(dt: torch.Tensor, x: torch.Tensor, bmat: torch.Tensor,
     host, so a CUDA graph can capture it."""
     args = (("dt", dt), ("x", x), ("bmat", bmat), ("cmat", cmat), ("a", a),
             ("h0", h0))
+    build.refuse_grad("mamba_scan_cuda", *(t for _, t in args))
     dev = dt.device
     for name, t in args:
         if t.device.type != "cuda" or t.device != dev:

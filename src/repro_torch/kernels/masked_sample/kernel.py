@@ -84,6 +84,7 @@ def masked_argmax_packed(logits: torch.Tensor, bits: torch.Tensor):
     stride (the row stride may be wider than V and odd, e.g. a ``[:, :v]``
     view of padded logits); bits (B, ceil(V/32)) int32 contiguous -> (idx
     (B,) int32, val (B,) float32).  Reads nothing back to the host."""
+    build.refuse_grad("masked_argmax_packed", logits)
     _check_logits("masked_argmax_packed", logits, bits)
     b, v = logits.shape
     n_words = -(-v // 32)
@@ -107,6 +108,7 @@ def masked_argmax_bytes(logits: torch.Tensor, mask: torch.Tensor):
     stride (the row stride may be wider than V); mask (B, V) bool/int8/uint8
     with unit column stride, nonzero = legal -> (idx (B,) int32, val (B,)
     float32).  Reads nothing back to the host."""
+    build.refuse_grad("masked_argmax_bytes", logits)
     _check_logits("masked_argmax_bytes", logits, mask)
     b, v = logits.shape
     if mask.dtype not in MASK_BYTE_DTYPES or tuple(mask.shape) != (b, v) \

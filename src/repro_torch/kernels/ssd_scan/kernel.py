@@ -25,6 +25,7 @@ def ssd_scan_cuda(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     host."""
     args = (("x", x), ("b", b), ("c", c), ("ld", ld), ("dt", dt),
             ("h0", h0))
+    build.refuse_grad("ssd_scan_cuda", *(t for _, t in args))
     dev = x.device
     for name, t in args:
         if t.device.type != "cuda" or t.device != dev:

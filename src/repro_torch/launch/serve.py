@@ -42,6 +42,15 @@ certifies clean; ``--device-loop`` (which implies it) runs certified greedy
 rows through the scheduler's fused block, ``--sync-n`` decode steps a host
 sync, each block one CUDA graph replay on the card.
 
+``--checkpoint DIR`` serves a trained model instead of random weights: the
+tokenizer from ``DIR/tokenizer.json`` (the config's vocabulary follows it)
+and the params from ``DIR``, written by ``repro_torch.launch.train --save``
+or by the JAX package's trainer; ``--arch`` and ``--smoke`` must name the
+config it was trained at (``meta.json``'s ``arch``):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
+      --smoke --checkpoint $TMPDIR/ck --kernels
+
 ``--prefix-cache`` (paged KV only) serves through the scheduler's radix
 prefix cache: an admission whose prompt shares whole pages with an earlier
 one maps them and prefills only its tail, and a restore with the flag
@@ -134,6 +143,9 @@ def parse_args(argv=None):
     ap.add_argument("--print-ids", action="store_true",
                     help="print one 'IDS <rid> <token ids...>' line a "
                          "result")
+    ap.add_argument("--checkpoint", default=None, metavar="DIR",
+                    help="serve the params and tokenizer saved in DIR "
+                         "(either package's trainer, --save DIR)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: the card)")
     args = ap.parse_args(argv)
@@ -145,6 +157,9 @@ def parse_args(argv=None):
 def build_engine(args):
     """(engine, requests, labels) for parsed ``args``."""
     import dataclasses
+    import json
+    import os
+    import pathlib
 
     import torch
 
@@ -155,30 +170,49 @@ def build_engine(args):
     from repro_torch.models import build_model
     from repro_torch.serving import (ConstraintSpec, DecodeParams, Request,
                                      ServingEngine)
-    from repro_torch.tokenizer import train_bpe
+    from repro_torch.tokenizer import BPETokenizer, train_bpe
+    from repro_torch.training import checkpoint
 
     dev = resolve_device(args.device)
     gnames = [n.strip() for n in args.grammar.split(",") if n.strip()]
     loaded = {n: grammars.load(n) for n in gnames if n != "none"}
-    corpus = b""
-    for i, g in enumerate(loaded.values() or [grammars.load("json")]):
-        corpus += GrammarSampler(g, seed=i).corpus(200 // max(1, len(loaded)))
-    tok = train_bpe(corpus, vocab_size=400)
     cfg = get_config(args.arch, smoke=args.smoke)
-    if args.smoke:
-        # the reduced config's head is sized to the tokenizer, as in the
-        # JAX driver; a published config keeps its head and the engine
-        # slices the logits to the tokenizer's vocabulary
+    if args.checkpoint:
+        meta = json.loads(
+            (pathlib.Path(args.checkpoint) / "meta.json").read_text())
+        if meta.get("arch", cfg.arch_id) != cfg.arch_id:
+            raise ValueError(
+                f"--checkpoint {args.checkpoint} holds {meta['arch']}, not "
+                f"{cfg.arch_id}: pass the --arch (and --smoke or "
+                "--no-smoke) it was trained at")
+        tok = BPETokenizer.load(
+            os.path.join(args.checkpoint, "tokenizer.json"))
+        # the trained head is sized to the checkpoint's tokenizer
         cfg = dataclasses.replace(cfg, vocab_size=tok.vocab_size,
-                                  max_seq_len=4096)
+                                  max_seq_len=max(cfg.max_seq_len, 4096))
+    else:
+        corpus = b""
+        for i, g in enumerate(loaded.values() or [grammars.load("json")]):
+            corpus += GrammarSampler(g, seed=i).corpus(
+                200 // max(1, len(loaded)))
+        tok = train_bpe(corpus, vocab_size=400)
+        if args.smoke:
+            # the reduced config's head is sized to the tokenizer, as in
+            # the JAX package's CLI; a published config keeps its head and the
+            # engine slices the logits to the tokenizer's vocabulary
+            cfg = dataclasses.replace(cfg, vocab_size=tok.vocab_size,
+                                      max_seq_len=4096)
     if args.kernels:
         cfg = dataclasses.replace(cfg, use_pallas_kernels=True)
     if args.dtype:
         cfg = dataclasses.replace(cfg, dtype=args.dtype)
     model = build_model(cfg)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(args.seed)
-    params = model.init(gen, device=dev)
+    if args.checkpoint:
+        params, _, _ = checkpoint.load(args.checkpoint, model, dev)
+    else:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(args.seed)
+        params = model.init(gen, device=dev)
     device_tables = args.device_tables or args.device_loop
     engine = ServingEngine(model, params, tok, max_len=1024,
                            device_tables=device_tables, device=dev)

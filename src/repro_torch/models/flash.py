@@ -1,6 +1,7 @@
-"""Full-sequence attention in plain PyTorch (forward only): the port of
-``repro.models.flash``'s ``naive_attention`` / ``blocked_attention``
-forward and the ``attention_any`` dispatch.  Used for prefill and for the
+"""Full-sequence attention in plain PyTorch: the port of
+``repro.models.flash``'s ``naive_attention``, ``blocked_attention`` (its
+custom VJP too: the backward recomputes the probability tiles) and the
+``attention_any`` dispatch.  Used for training, for prefill and for the
 decode read when the hand-written kernel is off.
 
 GQA layout: q (B, S, G, Qh, D) where G = n_kv heads, Qh = n_q // n_kv;
@@ -35,16 +36,15 @@ def _pick_blocks(s, t, q_block, kv_block):
     return q_block, kv_block
 
 
-def blocked_attention(q, k, v, q_pos, k_pos, window=None, k_valid=None,
-                      q_block: int = 512, kv_block: int = 1024):
+def _flash_fwd(q, k, v, q_pos, k_pos, window, k_valid, q_block, kv_block):
     """Online-softmax attention over (q_block x kv_block) tiles, so the
-    live intermediate is one tile.  q (B,S,G,Qh,D); k,v (B,T,G,D)."""
+    live intermediate is one tile.  Returns (out (B,S,G,Qh,Dv) in q's
+    dtype, lse (B,G,Qh,S) float32)."""
     b, s, g, qh, d = q.shape
     t = k.shape[1]
     dv = v.shape[-1]
     scale = 1.0 / math.sqrt(d)
-    q_block, kv_block = _pick_blocks(s, t, q_block, kv_block)
-    outs = []
+    outs, lses = [], []
     for qs in range(0, s, q_block):
         qb, qp = q[:, qs:qs + q_block], q_pos[:, qs:qs + q_block]
         m = torch.full((b, g, qh, q_block), NEG, dtype=torch.float32,
@@ -68,7 +68,79 @@ def blocked_attention(q, k, v, q_pos, k_pos, window=None, k_valid=None,
             m = m_new
         out = acc / torch.clamp(l[..., None], min=1e-30)
         outs.append(out.permute(0, 3, 1, 2, 4).to(q.dtype))
-    return torch.cat(outs, dim=1)
+        lses.append(m + torch.log(torch.clamp(l, min=1e-30)))
+    return torch.cat(outs, dim=1), torch.cat(lses, dim=-1)
+
+
+def _flash_bwd(q, k, v, q_pos, k_pos, window, k_valid, out, lse, dout,
+               q_block, kv_block):
+    """The flash-2 backward of ``repro.models.flash._flash_bwd``: each
+    probability tile is recomputed from the saved row log-sum-exp and
+    dropped, so the live intermediate stays one tile.  Sums in float32;
+    the grads come back in their operands' dtypes."""
+    s, t = q.shape[1], k.shape[1]
+    f32 = torch.float32
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    # delta_i = rowsum(dO_i * O_i)
+    delta = torch.einsum("bsgqd,bsgqd->bgqs", dout.to(f32), out.to(f32))
+    dq = torch.empty(q.shape, dtype=f32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=f32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=f32, device=v.device)
+    for qs in range(0, s, q_block):
+        sl = slice(qs, qs + q_block)
+        qb, qp, dob = q[:, sl], q_pos[:, sl], dout[:, sl].to(f32)
+        lse_i, del_i = lse[..., sl, None], delta[..., sl, None]
+        dq_i = torch.zeros(qb.shape, dtype=f32, device=q.device)
+        for ks in range(0, t, kv_block):
+            kl = slice(ks, ks + kv_block)
+            kb, vb = k[:, kl], v[:, kl]
+            kval = None if k_valid is None else k_valid[:, kl]
+            sc = torch.einsum("bsgqd,btgd->bgqst", qb, kb) * scale
+            sc = sc.to(f32) + _bias_tile(qp, k_pos[:, kl], window, kval)
+            p = torch.exp(sc - lse_i)                        # (B,G,Qh,qb,kb)
+            dv[:, kl] += torch.einsum("bgqst,bsgqd->btgd", p, dob)
+            dp = torch.einsum("bsgqd,btgd->bgqst", dob, vb.to(f32))
+            ds = p * (dp - del_i) * scale
+            dq_i += torch.einsum("bgqst,btgd->bsgqd", ds, kb.to(f32))
+            dk[:, kl] += torch.einsum("bgqst,bsgqd->btgd", ds, qb.to(f32))
+        dq[:, sl] = dq_i
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _BlockedAttention(torch.autograd.Function):
+    """The custom VJP of ``repro.models.flash.blocked_attention``: the
+    forward saves (q, k, v, out, lse) and no tile; the backward recomputes
+    the tiles (``_flash_bwd``).  Autograd through the loops instead would
+    keep every (q_block x kv_block) tile for the backward, the memory of
+    the whole S x T attention matrix."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, k_pos, window, k_valid, q_block,
+                kv_block):
+        out, lse = _flash_fwd(q, k, v, q_pos, k_pos, window, k_valid,
+                              q_block, kv_block)
+        ctx.save_for_backward(q, k, v, q_pos, k_pos, k_valid, out, lse)
+        ctx.blocks = (window, q_block, kv_block)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, q_pos, k_pos, k_valid, out, lse = ctx.saved_tensors
+        window, q_block, kv_block = ctx.blocks
+        dq, dk, dv = _flash_bwd(q, k, v, q_pos, k_pos, window, k_valid, out,
+                                lse, dout, q_block, kv_block)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def blocked_attention(q, k, v, q_pos, k_pos, window=None, k_valid=None,
+                      q_block: int = 512, kv_block: int = 1024):
+    """q (B,S,G,Qh,D); k,v (B,T,G,D) -> (B,S,G,Qh,Dv): online softmax over
+    (q_block x kv_block) tiles forward, the tiles recomputed backward, so
+    training memory stays one tile."""
+    q_block, kv_block = _pick_blocks(q.shape[1], k.shape[1], q_block,
+                                     kv_block)
+    return _BlockedAttention.apply(q, k, v, q_pos, k_pos, window, k_valid,
+                                   q_block, kv_block)
 
 
 def naive_attention(q, k, v, q_pos, k_pos, window=None, k_valid=None):

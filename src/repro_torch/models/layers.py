@@ -269,14 +269,15 @@ def _top_k(probs: torch.Tensor, k: int):
 
 
 def moe_apply(params: Params, cfg: ModelConfig,
-              x: torch.Tensor) -> torch.Tensor:
+              x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Token-choice top-k routing with group-limited, capacity-bounded
     einsum dispatch, as ``repro.models.layers.moe_apply``: tokens split
     into groups of ``MOE_GROUP_TOKENS`` (one group when that does not
     divide), each (token, slot) placed at its cumulative position in its
     expert's per-group buffer of ``cap`` slots and dropped past it.  Every
-    expert runs on its ``cap`` slots, full or empty.  Returns the output
-    (B,S,D); the router's aux loss (a training term) is not computed."""
+    expert runs on its ``cap`` slots, full or empty.  Returns (output
+    (B,S,D), the router's Switch load-balance loss (float32 scalar), a
+    training term that serving ignores)."""
     mo = cfg.moe
     b, s, d = x.shape
     n_tok = b * s
@@ -289,6 +290,11 @@ def moe_apply(params: Params, cfg: ModelConfig,
     gate_vals, expert_idx = _top_k(probs, k)                     # (G, Ng, k)
     gate_vals = gate_vals / torch.clamp(
         gate_vals.sum(-1, keepdim=True), min=1e-9)               # renorm top-k
+    # load-balance aux loss (Switch): e * sum_e f_e * p_e, over all tokens
+    me = probs.mean(dim=(0, 1))
+    ce = (expert_idx[..., 0, None] == torch.arange(e, device=x.device)
+          ).to(torch.float32).mean(dim=(0, 1))
+    aux = mo.router_aux_coef * e * torch.sum(me * ce)
     cap = max(1, int(math.ceil(ng * k / e * mo.capacity_factor)))
     cap = min(cap, ng)
     # position of each (token, slot) within its expert's per-group buffer;
@@ -323,4 +329,4 @@ def moe_apply(params: Params, cfg: ModelConfig,
         out = out + mlp_apply(params["shared"], xt_flat)
     if "dense" in params:
         out = out + mlp_apply(params["dense"], xt_flat)
-    return out.reshape(b, s, d)
+    return out.reshape(b, s, d), aux

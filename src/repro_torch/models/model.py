@@ -1,6 +1,8 @@
 """Public model API of the port: ``build_model(config) -> Model`` with
 
   init(generator, device)            -> params
+  train_logits(params, inputs)       -> (logits (B,S,V), aux loss)
+  loss(params, batch)                -> (scalar, metrics)
   init_cache(batch, max_len, ...)    -> cache (dense, or paged pool + table)
   prefill(params, inputs, cache)     -> (last logits (B,1,V), cache)
   decode_step(params, cache, tokens) -> (logits (B,S_new,V), cache)
@@ -11,7 +13,9 @@ mirroring ``repro.models.model`` for the block kinds ported so far
 MoE and the Mamba1/Mamba2 SSM blocks).  Params are nested dicts of tensors; caches
 are updated in place and returned.
 ``tokens`` in decode_step may carry S_new > 1 (one forward scores a
-speculative chain).  Training (``loss``/``train_logits``) is not ported yet.
+speculative chain).  ``loss`` is differentiable: autograd takes the
+gradient of every parameter, the group's repetitions rematerialized and
+long attention through the flash backward.
 """
 from __future__ import annotations
 
@@ -77,6 +81,36 @@ class Model:
             logits[..., self.cfg.vocab_size:] = NEG
         return logits
 
+    # -- train ----------------------------------------------------------------
+
+    def train_logits(self, params: Params, inputs: Dict[str, Any]
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Causal logits over the whole of ``inputs["tokens"]`` (B, S), no
+        cache, with the summed aux loss (float32 scalar)."""
+        x = self._embed(params, inputs["tokens"])
+        b, s, _ = x.shape
+        pos = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+        x, aux = stack_apply(params["stack"], self.cfg, x,
+                             Ctx(mode="train", q_pos=pos), None)
+        return self._head(params, x), torch.as_tensor(
+            aux, dtype=torch.float32, device=x.device)
+
+    def loss(self, params: Params, batch: Dict[str, Any]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """batch["tokens"]: (B, S+1); next-token prediction over it.
+        labels < 0 are masked."""
+        tokens = batch["tokens"]
+        inputs = dict(batch)
+        inputs["tokens"] = tokens[:, :-1]
+        labels = tokens[:, 1:]
+        logits, aux = self.train_logits(params, inputs)
+        # prefix positions (a VLM's) predict nothing: trim to the text tail
+        if logits.shape[1] != labels.shape[1]:
+            logits = logits[:, -labels.shape[1]:]
+        nll = cross_entropy(logits, labels)
+        return nll + aux, {"nll": nll, "aux": aux,
+                           "ppl": torch.exp(torch.clamp(nll, max=20.0))}
+
     # -- serve ----------------------------------------------------------------------
 
     def init_cache(self, batch: int, max_len: int, page_size=None,
@@ -101,7 +135,7 @@ class Model:
         b, s, _ = x.shape
         pos = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
         ctx = Ctx(mode="prefill", q_pos=pos, cache_len=cache["len"])
-        x = stack_apply(params["stack"], self.cfg, x, ctx, cache)
+        x, _ = stack_apply(params["stack"], self.cfg, x, ctx, cache)
         length = inputs.get("length")
         if length is None:
             cache["len"] = cache["len"] + s
@@ -122,7 +156,7 @@ class Model:
                                   device=x.device).expand(b, s)
         ctx = Ctx(mode="decode", q_pos=pos, cache_len=ln,
                   pages=cache.get("pages"))
-        x = stack_apply(params["stack"], self.cfg, x, ctx, cache)
+        x, _ = stack_apply(params["stack"], self.cfg, x, ctx, cache)
         cache["len"] = ln + s
         return self._head(params, x), cache
 
@@ -135,6 +169,18 @@ class Model:
         out = dict(cache)
         out["len"] = cache["len"] - n_tokens
         return out
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy in float32 over the labels >= 0;
+    ``logsumexp`` and a gather where the JAX package contracts a one-hot
+    (the same sum)."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        torch.clamp(labels, min=0).long()[..., None])[..., 0]
+    mask = (labels >= 0).to(torch.float32)
+    return ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -14,7 +14,11 @@ mirroring ``repro.models.ssm``.
 
 Decode is the same function at S=1, with the conv and recurrent states
 carried in the serving cache.  ``dt_bias``, ``A_log`` and ``D`` are float32
-whatever ``cfg.dtype`` is; the scans run in float32.
+whatever ``cfg.dtype`` is; the scans run in float32.  Training
+(``train=True``) takes the plain scans, which autograd differentiates;
+neither kernel has a backward, so a train-mode forward with
+``use_pallas_kernels`` set raises instead of falling back (the JAX package
+cannot take that gradient either).
 """
 from __future__ import annotations
 
@@ -110,11 +114,19 @@ def _scan_chunked(a: torch.Tensor, bx: torch.Tensor,
     return torch.cat(outs, dim=1), h
 
 
+def _refuse_kernel_in_training(kernel: str) -> None:
+    raise RuntimeError(
+        f"a train-mode forward reached the {kernel} kernel, which has no "
+        "backward: train with use_pallas_kernels=False (the plain scan is "
+        "differentiable); the kernels serve a trained model")
+
+
 def mamba1_apply(params: Params, cfg: ModelConfig, x: torch.Tensor,
                  conv_state: Optional[torch.Tensor] = None,
-                 ssm_state: Optional[torch.Tensor] = None):
+                 ssm_state: Optional[torch.Tensor] = None,
+                 train: bool = False):
     """x: (B,S,D) -> (y, (conv_state, ssm_state)).  S=1 is the decode
-    step; larger S covers prefill."""
+    step; larger S covers prefill and, with ``train``, training."""
     s_cfg = cfg.ssm
     d_in = s_cfg.expand * cfg.d_model
     n = s_cfg.d_state
@@ -135,6 +147,8 @@ def mamba1_apply(params: Params, cfg: ModelConfig, x: torch.Tensor,
     if ssm_state is None:
         ssm_state = torch.zeros((bsz, d_in, n), dtype=F32, device=x.device)
     xs32 = xs.to(F32)
+    if cfg.use_pallas_kernels and train:
+        _refuse_kernel_in_training("Mamba1 selective-scan")
     if cfg.use_pallas_kernels:
         # hand-written selective scan (kernels/mamba_scan): the state stays
         # in registers, the discretized tensors are never formed
@@ -223,7 +237,8 @@ def _ssd_chunked(xs, b_in, c_in, log_decay, dt, h0):
 
 def mamba2_apply(params: Params, cfg: ModelConfig, x: torch.Tensor,
                  conv_state: Optional[torch.Tensor] = None,
-                 ssm_state: Optional[torch.Tensor] = None):
+                 ssm_state: Optional[torch.Tensor] = None,
+                 train: bool = False):
     """x: (B,S,D) -> (y, (conv_state, ssm_state (B,nh,hd,N)))."""
     s_cfg = cfg.ssm
     d_in = s_cfg.expand * cfg.d_model
@@ -245,6 +260,8 @@ def mamba2_apply(params: Params, cfg: ModelConfig, x: torch.Tensor,
     if ssm_state is None:
         ssm_state = torch.zeros((bsz, nh, hd, n), dtype=F32, device=x.device)
 
+    if cfg.use_pallas_kernels and g == 1 and train:
+        _refuse_kernel_in_training("Mamba2 SSD-scan")
     if cfg.use_pallas_kernels and g == 1:
         # hand-written SSD scan (kernels/ssd_scan); on the CPU its plain
         # version is chunked as the JAX package's kernel is

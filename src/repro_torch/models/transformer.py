@@ -2,7 +2,9 @@
 blocks, as in ``repro.models.transformer``.  The JAX package scans the
 group over stacked layer params; here the group's params are a per-layer
 list and the loop is a Python loop, while the group's cache keeps its
-leading ``reps`` axis (layer i writes ``cache[...][i]`` in place).
+leading ``reps`` axis (layer i writes ``cache[...][i]`` in place).  In
+train mode each repetition of the group runs under activation
+checkpointing, as the JAX package remats its scanned group.
 
 Block kinds ported so far:
   attn          GQA transformer block
@@ -20,6 +22,7 @@ import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention.ops import decode_attention
@@ -38,7 +41,7 @@ Params = Dict[str, Any]
 
 @dataclasses.dataclass
 class Ctx:
-    mode: str                                  # 'prefill' | 'decode'
+    mode: str                                  # 'train' | 'prefill' | 'decode'
     q_pos: torch.Tensor                        # (B, S)
     cache_len: Optional[torch.Tensor] = None   # () or (B,) int32
     # paged KV serving: (B, max_pages) int32 block table -- position p of
@@ -250,63 +253,88 @@ def _mla_attention(p: Params, cfg: ModelConfig, xn: torch.Tensor, ctx: Ctx,
 
 
 def block_apply(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
-                ctx: Ctx, cache: Optional[Params]) -> torch.Tensor:
-    """One block; its ``cache`` (if given) is written in place."""
+                ctx: Ctx, cache: Optional[Params]):
+    """One block -> (x, aux loss): the MoE router's load-balance term, a
+    float32 scalar, or 0.0 for the other kinds.  Its ``cache`` (if given)
+    is written in place."""
     if kind in ("attn", "shared_attn"):
         x = x + _self_attention(p["attn"], cfg,
                                 rmsnorm(p["norm1"], x, cfg.rms_eps), ctx,
                                 cache)
-        return x + mlp_apply(p["mlp"], rmsnorm(p["norm2"], x, cfg.rms_eps))
+        return x + mlp_apply(p["mlp"],
+                             rmsnorm(p["norm2"], x, cfg.rms_eps)), 0.0
     if kind == "mla":
         x = x + _mla_attention(p["mla"], cfg,
                                rmsnorm(p["norm1"], x, cfg.rms_eps), ctx,
                                cache)
-        return x + mlp_apply(p["mlp"], rmsnorm(p["norm2"], x, cfg.rms_eps))
+        return x + mlp_apply(p["mlp"],
+                             rmsnorm(p["norm2"], x, cfg.rms_eps)), 0.0
     if kind == "moe":
         xn = rmsnorm(p["norm1"], x, cfg.rms_eps)
         if cfg.mla is not None:
             x = x + _mla_attention(p["mla"], cfg, xn, ctx, cache)
         else:
             x = x + _self_attention(p["attn"], cfg, xn, ctx, cache)
-        return x + moe_apply(p["moe"], cfg,
-                             rmsnorm(p["norm2"], x, cfg.rms_eps))
+        h, aux = moe_apply(p["moe"], cfg, rmsnorm(p["norm2"], x, cfg.rms_eps))
+        return x + h, aux
     if kind in ("mamba1", "mamba2"):
         fn = ssm.mamba1_apply if kind == "mamba1" else ssm.mamba2_apply
-        conv_st = cache["conv"] if cache is not None else None
-        ssm_st = cache["ssm"] if cache is not None else None
+        train = ctx.mode == "train"
+        # training starts every sequence from zero state
+        conv_st = cache["conv"] if cache is not None and not train else None
+        ssm_st = cache["ssm"] if cache is not None and not train else None
         y, (new_conv, new_ssm) = fn(p["mamba"], cfg,
                                     rmsnorm(p["norm"], x, cfg.rms_eps),
-                                    conv_st, ssm_st)
+                                    conv_st, ssm_st, train=train)
         if cache is not None:
             cache["conv"].copy_(new_conv)
             cache["ssm"].copy_(new_ssm)
-        return x + y
+        return x + y, 0.0
     raise NotImplementedError(
         f"block kind {kind!r} is not ported to repro_torch yet")
 
 
 def stack_apply(params: Params, cfg: ModelConfig, x: torch.Tensor, ctx: Ctx,
-                cache: Optional[Params]) -> torch.Tensor:
-    """Run head blocks, ``reps`` repetitions of the group, tail blocks.
-    Every ``shared_attn`` of the group runs on ``params["shared_attn"]``
-    with its own repetition's cache.  ``cache`` (if given) is written in
-    place."""
+                cache: Optional[Params]):
+    """Run head blocks, ``reps`` repetitions of the group, tail blocks ->
+    (x, summed aux loss).  Every ``shared_attn`` of the group runs on
+    ``params["shared_attn"]`` with its own repetition's cache.  ``cache``
+    (if given) is written in place.  In train mode each repetition runs
+    under ``torch.utils.checkpoint``: its activations are
+    recomputed in the backward instead of kept, so activation memory is
+    one repetition's."""
     check_ported(cfg)
     head, reps, group, tail = cfg.layer_program
     shared = params.get("shared_attn")
+    aux_total = 0.0
     for i, kind in enumerate(head):
         c = cache["head"][i] if cache is not None else None
-        x = block_apply(params["head"][i], cfg, kind, x, ctx, c)
-    for r in range(reps):
+        x, aux = block_apply(params["head"][i], cfg, kind, x, ctx, c)
+        aux_total = aux_total + aux
+
+    def run_group(h, r, caches):
+        aux_g = 0.0
         for j, kind in enumerate(group):
-            c = None
-            if cache is not None:
-                c = {name: leaf[r]
-                     for name, leaf in cache["group"][f"b{j}"].items()}
             p = shared if kind == "shared_attn" \
                 else params["group"][f"b{j}"][r]
-            x = block_apply(p, cfg, kind, x, ctx, c)
+            h, a = block_apply(p, cfg, kind, h, ctx, caches[j])
+            aux_g = aux_g + a
+        return h, aux_g
+
+    remat = ctx.mode == "train" and torch.is_grad_enabled()
+    for r in range(reps):
+        caches = [None] * len(group)
+        if cache is not None:
+            caches = [{name: leaf[r]
+                       for name, leaf in cache["group"][f"b{j}"].items()}
+                      for j in range(len(group))]
+        if remat:
+            x, aux = checkpoint(run_group, x, r, caches, use_reentrant=False)
+        else:
+            x, aux = run_group(x, r, caches)
+        aux_total = aux_total + aux
     for i, kind in enumerate(tail):
         c = cache["tail"][i] if cache is not None else None
-        x = block_apply(params["tail"][i], cfg, kind, x, ctx, c)
-    return x
+        x, aux = block_apply(params["tail"][i], cfg, kind, x, ctx, c)
+        aux_total = aux_total + aux
+    return x, aux_total

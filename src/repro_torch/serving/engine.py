@@ -65,6 +65,7 @@ from repro_torch.core.speculation import CountModel, Speculator
 from repro_torch.core.trees import TreeCache
 from repro_torch.device import resolve_device
 from repro_torch.models import kvcache
+from repro_torch.models.convert import tree_items
 from repro_torch.models.model import Model
 from repro_torch.serving.request import (ConstraintSpec, DecodeParams,
                                          Request, packed_argmax,
@@ -185,6 +186,12 @@ class ServingEngine:
                  device_tables: bool = False,
                  device="cuda"):
         self.device = resolve_device(device)
+        if any(p.requires_grad for _, p in tree_items(params)):
+            raise ValueError(
+                "ServingEngine: params require grad, and serving must not "
+                "record an autograd graph (the kernels have no backward); "
+                "pass detached params, e.g. tree_map(lambda p: p.detach(), "
+                "params), as repro_torch.training.train_loop.train returns")
         self.model = model
         self.params = params
         self.tok = tok

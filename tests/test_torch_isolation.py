@@ -6,7 +6,8 @@
  - the copied framework-free modules equal their ``repro`` originals after
    the ``repro.`` -> ``repro_torch.`` import rewrite, so they cannot drift;
    a near copy equals its original but for the lines it names;
- - the entry points refuse to run without ``device="cpu"`` when no card is
+ - the entry points (the serve CLI with and without ``--checkpoint``, the
+   trainer CLI) refuse to run without ``device="cpu"`` when no card is
    visible;
  - the kernel wrappers take their plain versions on CPU tensors and leave
    the launch counters at 0.
@@ -27,7 +28,8 @@ PORT = SRC / "repro_torch"
 COPIED = (sorted(p.relative_to(SRC / "repro")
                  for d in ("core", "tokenizer", "configs")
                  for p in (SRC / "repro" / d).glob("*.py"))
-          + [pathlib.Path(p) for p in ("serving/request.py",
+          + [pathlib.Path(p) for p in ("training/data.py",
+                                       "serving/request.py",
                                        "serving/session.py",
                                        "serving/prefix_cache.py",
                                        "analysis/__init__.py",
@@ -139,6 +141,11 @@ def test_entry_points_refuse_without_a_card(small_tokenizer):
         ServingEngine(model, params, small_tokenizer)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--prompts", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--checkpoint", str(ROOT / "no-such-checkpoint")])
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--smoke", "--steps", "1"])
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
@@ -186,3 +193,19 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         decode_attention_cuda(torch.zeros((1, 1, 1, 1, 8)),
                               torch.zeros((1, 4, 1, 8)),
                               torch.zeros((1, 4, 1, 8)), 1)
+
+
+@pytest.mark.parametrize("name", ["decode_attention", "decode_attention_split",
+                                  "masked_argmax_packed",
+                                  "masked_argmax_bytes", "mamba_scan",
+                                  "ssd_scan"])
+def test_kernel_wrappers_refuse_operands_that_require_grad(name):
+    """A check before any other: an operand that requires grad is refused
+    (the kernels have no backward); under ``no_grad`` the same call goes on
+    to the wrapper's own checks, which refuse CPU tensors."""
+    from test_torch_kernels_cuda import wrapper_calls
+    fn, args = wrapper_calls(torch, "cpu", requires_grad=True)[name]
+    with pytest.raises(RuntimeError, match="no backward"):
+        fn(*args)
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        fn(*args)

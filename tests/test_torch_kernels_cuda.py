@@ -1208,3 +1208,125 @@ def test_cached_admission_keeps_the_recorded_graph(cuda_device):
     assert sched.n_device_tokens > 0 and sched.n_engine_resets == 0
     sched.prefix_cache.reset()
     assert sched.pool.available == sched.n_pages - 1
+
+
+# -- training: the grad guard, the flash backward, a train step -------------
+
+
+def wrapper_calls(torch, device, requires_grad):
+    """name -> (launch wrapper, operands) for each kernel's wrapper at a
+    small valid shape on ``device``, the first float operand requiring grad
+    if ``requires_grad``."""
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_cuda, decode_attention_split_cuda)
+    from repro_torch.kernels.mamba_scan.kernel import mamba_scan_cuda
+    from repro_torch.kernels.masked_sample.kernel import (
+        masked_argmax_bytes, masked_argmax_packed)
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+    gen = torch.Generator().manual_seed(0)
+
+    def f(*shape, grad=False):
+        t = torch.randn(shape, generator=gen).to(device)
+        return t.requires_grad_(requires_grad and grad)
+
+    lens = torch.tensor([4], dtype=torch.int32, device=device)
+    lat = f(1, 8, 1, 16)
+    return {
+        "decode_attention": (decode_attention_cuda, (
+            f(1, 1, 1, 1, 16, grad=True), f(1, 8, 1, 16), f(1, 8, 1, 16),
+            lens)),
+        "decode_attention_split": (decode_attention_split_cuda, (
+            f(1, 1, 1, 2, 16, grad=True), lat, lat, f(1, 1, 1, 2, 8),
+            f(1, 8, 1, 8), lens)),
+        "masked_argmax_packed": (masked_argmax_packed, (
+            f(1, 64, grad=True),
+            torch.full((1, 2), -1, dtype=torch.int32, device=device))),
+        "masked_argmax_bytes": (masked_argmax_bytes, (
+            f(1, 64, grad=True),
+            torch.ones((1, 64), dtype=torch.bool, device=device))),
+        "mamba_scan": (mamba_scan_cuda, (
+            f(1, 2, 4, grad=True).abs(), f(1, 2, 4), f(1, 2, 4), f(1, 2, 4),
+            -f(4, 4).abs(), f(1, 4, 4))),
+        "ssd_scan": (ssd_scan_cuda, (
+            f(1, 2, 1, 8, grad=True), f(1, 2, 8), f(1, 2, 8),
+            -f(1, 2, 1).abs(), f(1, 2, 1).abs(), f(1, 1, 8, 8))),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["decode_attention", "decode_attention_split",
+                                  "masked_argmax_packed",
+                                  "masked_argmax_bytes", "mamba_scan",
+                                  "ssd_scan"])
+def test_kernel_wrapper_refuses_an_operand_that_requires_grad(cuda_device,
+                                                              name):
+    """The kernels have no backward: a launch that autograd would record
+    raises, and launches nothing; under ``no_grad`` the same call runs."""
+    fn, args = wrapper_calls(torch, cuda_device, requires_grad=True)[name]
+    before = fn.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        fn(*args)
+    assert fn.launches == before
+    with torch.no_grad():
+        fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 48])
+def test_blocked_attention_backward_on_card_matches_cpu(cuda_device, window):
+    """The flash backward (tiles recomputed) on the card against the same
+    function's grads on the CPU, float32, atol 2e-4, rtol 1e-3 (the JAX
+    package's custom-VJP test's)."""
+    from repro_torch.models.flash import blocked_attention
+    rng = np.random.default_rng(11)
+    b, s, g, qh, d = 2, 256, 2, 2, 32
+    arrays = (rng.normal(size=(b, s, g, qh, d)), rng.normal(size=(b, s, g, d)),
+              rng.normal(size=(b, s, g, d)))
+    pos = np.broadcast_to(np.arange(s, dtype=np.int32), (b, s)).copy()
+    grads = []
+    for dev in ("cpu", cuda_device):
+        q, k, v = (torch.tensor(a, dtype=torch.float32, device=dev,
+                                requires_grad=True) for a in arrays)
+        p = torch.from_numpy(pos).to(dev)
+        out = blocked_attention(q, k, v, p, p, window, None, 64, 128)
+        grads.append([t.cpu() for t in torch.autograd.grad(
+            (out ** 2).sum(), (q, k, v))])
+    for a, c in zip(*grads):
+        np.testing.assert_allclose(c.numpy(), a.numpy(), atol=2e-4,
+                                   rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_matches_cpu(cuda_device):
+    """One AdamW step of the SMOKE dense model on identical batches: the
+    loss and grad norm within float32 tolerance (rtol 1e-5), and the new
+    params within 2 lr + 1e-6 -- at step 1 AdamW moves every element by
+    about +-lr whatever its gradient's size, so a near-zero gradient whose
+    sign differs between the devices' sums moves by 2 lr."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.convert import (params_from_numpy,
+                                            params_to_numpy, tree_items)
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_loop import make_train_step, to_device
+    cfg = get_config("stablelm-1.6b", smoke=True)
+    model = build_model(cfg)
+    ocfg = opt.AdamWConfig(lr=1e-3, schedule="constant", warmup_steps=1)
+    toks = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (4, 65)).astype(np.int32)
+    params = params_to_numpy(model.init(device="cpu"))
+    runs = []
+    for dev in ("cpu", cuda_device):
+        p = params_from_numpy(params, cfg, dev)
+        new, _, met = make_train_step(model, ocfg)(
+            p, opt.init_state(p), to_device({"tokens": toks}, dev))
+        runs.append((params_to_numpy(new), {k: float(v)
+                                            for k, v in met.items()}))
+    (want, wm), (got, gm) = runs
+    for k in ("loss", "nll", "grad_norm"):
+        np.testing.assert_allclose(gm[k], wm[k], rtol=1e-5)
+    flat = dict(tree_items(got))
+    for path, w in tree_items(want):
+        np.testing.assert_allclose(flat[path], w, rtol=0,
+                                   atol=2 * ocfg.lr + 1e-6, err_msg=str(path))

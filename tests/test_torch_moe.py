@@ -1,8 +1,9 @@
 """The port's MoE FFN against ``repro``'s on the same weights and inputs:
-``moe_apply`` at decode with forced capacity drops, at 4096 tokens (two
-dispatch groups), with deepseek's shared expert and with arctic's dense
-residual; the tie order of the top-k; the GQA + MoE model config of
-``tests/test_models.py`` through prefill and decode; and two bridge
+``moe_apply`` (its output and router aux loss) at decode with forced
+capacity drops, at 4096 tokens (two dispatch groups), with deepseek's
+shared expert and with arctic's dense residual; the tie order of the
+top-k; the GQA + MoE model config of ``tests/test_models.py`` through
+prefill and decode; and two bridge
 repairs: the float32 router survives a bfloat16 config, and ``moe_init``
 draws the expert stacks one expert at a time.  float32; atol = rtol = 1e-4
 for floats."""
@@ -77,9 +78,10 @@ def _drops(cfg, router, x):
 def test_moe_apply_matches_with_drops(moe, b, s):
     cfg, jp, tcfg, tp = _moe_pair(**moe)
     x = _x(b, s, seed=b * 10 + s)
-    want, _ = jl.moe_apply(jp, cfg, jnp.asarray(x))
-    got = tl.moe_apply(tp, tcfg, torch.from_numpy(x))
+    want, want_aux = jl.moe_apply(jp, cfg, jnp.asarray(x))
+    got, aux = tl.moe_apply(tp, tcfg, torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(float(aux), float(want_aux), **TOL)
     assert _drops(cfg, jp["router"], x) > 0, \
         "the case must drop some (token, slot) pairs"
 
@@ -90,9 +92,10 @@ def test_moe_apply_matches_at_4096_tokens():
                                   n_shared_experts=1, capacity_factor=1.0)
     x = _x(2, 2048, seed=7, d=32)
     assert (x.shape[0] * x.shape[1]) // jl.MOE_GROUP_TOKENS == 2
-    want, _ = jl.moe_apply(jp, cfg, jnp.asarray(x))
-    got = tl.moe_apply(tp, tcfg, torch.from_numpy(x))
+    want, want_aux = jl.moe_apply(jp, cfg, jnp.asarray(x))
+    got, aux = tl.moe_apply(tp, tcfg, torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(float(aux), float(want_aux), **TOL)
 
 
 def test_top_k_breaks_ties_by_lowest_index():
