@@ -163,7 +163,32 @@ non-zero without the final result line):
     (atol 2e-4, rtol 1e-3; both peaks printed), every kernel wrapper
     refusing an operand that requires grad, and the falcon-mamba-7b and
     zamba2-1.2b smoke configs refusing to train through the scans, then
-    taking a step without them.
+    taking a step without them;
+11. other architectures, run after phase 6 so that phase 7 reads their
+    launches, at their published widths with random weights, 4 DOMINO
+    JSON requests of 32 tokens in 4 dense slots, each request with its
+    seeded extra inputs: gemma3-27b (groups of 5 sliding-window ``swa``
+    layers + 1 global ``attn``, 262144-token vocabulary; max_len 2048, one
+    prompt of about 1010 tokens so that its row passes the 1024-slot ring
+    and the ring wraps), llava-next-mistral-7b (all ``swa``, a (1, 2880,
+    4096) patch prefix a request; max_len 4096) and whisper-tiny (the
+    ``xattn`` decoder over a 4-layer encoder, (1, 1500, 384) frames a
+    request).  A ring decodes on the plain path and the cross-attention
+    runs ``attention_any``, as in the JAX package, so #1 runs only on the
+    ``attn`` and ``xattn`` self-attention layers (Dk 128 with Qh 2, and Dk
+    64 with Qh 1), #2 on every selection.  For each: (a) float32 through
+    the kernels against the plain path, ids and statuses equal under the
+    margin rule (gemma3 with its depth cut to 8 layers, the group once and
+    the tail: 4.71 B parameters); (b) bfloat16 through the kernels, full
+    depth: tok/s, the tick's breakdown, #1 and #2 launches a tick; (c)
+    gemma3 (8 layers, float32) with ``kv_cache_dtype="int8"``, kernels
+    against plain, the cache's bytes beside the native cache's; (d)
+    whisper through the device loop (``sync_n`` 8) against its host loop,
+    ids equal, at most 1/8 + 0.1 host syncs a token.  Launches are checked
+    as in phase 5; phase 7 adds #1 on a mid-run call of whisper's,
+    gemma3's and the int8 run's (``whisper``, ``gemma3``, ``int8``) and #2
+    on a mid-run tick of each bf16 run (``gemma3``, ``llava``,
+    ``whisper``).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -1159,7 +1184,8 @@ def path_kernels(cfg):
     blocks = list(head) + list(group) * reps + list(tail)
     mla = [b == "mla" or (b == "moe" and cfg.mla is not None)
            for b in blocks]
-    n_attn = sum(b in ("attn", "shared_attn", "moe") and not m
+    # a ring (swa) decodes on the plain path, as the JAX package's does
+    n_attn = sum(b in ("attn", "shared_attn", "moe", "xattn") and not m
                  for b, m in zip(blocks, mla))
     out = {"masked_argmax_packed": None}      # one a selection tick
     if n_attn:
@@ -2013,10 +2039,13 @@ def _tick_breakdown(torch, eng, arch, results, wall, ticks, phases, lengths,
     feed = torch.zeros((b, 1), dtype=torch.int64, device="cuda")
     cfg = eng.model.cfg
     plain = build_model(dataclasses.replace(cfg, use_pallas_kernels=False))
-    # a B-row forward reads every weight once (the embedding only B rows)
-    w_bytes = sum(x.numel() * x.element_size() for x in _leaves(eng.params))
+    # a B-row forward reads every weight once (the embedding only B rows,
+    # unless the head is tied to it; an encoder's weights not at all)
+    w_bytes = sum(x.numel() * x.element_size() for k, v in eng.params.items()
+                  if k != "encoder" for x in _leaves(v))
     emb = eng.params["embed"]
-    w_bytes -= emb[b:].numel() * emb.element_size()
+    if not eng.model.cfg.tie_embeddings:
+        w_bytes -= emb[b:].numel() * emb.element_size()
     bounds = [("", w_bytes)]
     if cfg.moe is not None:
         # the experts this forward's batch routes to, layer by layer
@@ -2220,6 +2249,8 @@ def phase_kernels(torch, card, paths, scans, attn_long, split_long,
         "plain_ms": time_ms(torch, lambda: masked_argmax_ref(logits, bits)),
         "bound_ms": bnd, "bound_by": bnd_by, "library_ms": None,
         **argmax_long["packed"]})
+    arch_entries = arch_kernel_entries(torch, card, paths)
+    out[-1].update(arch_entries["masked_argmax_packed"])
 
     def mid(arch, name):
         calls = paths[arch]["calls"][name]
@@ -2241,6 +2272,7 @@ def phase_kernels(torch, card, paths, scans, attn_long, split_long,
                              "stablelm-1.6b")
     entry["verify_contiguous"] = verify(_attn_entry, "decode_attention",
                                         "zamba2-1.2b")
+    entry.update(arch_entries["decode_attention"])
     out.append(entry)
 
     # the split score, at a mid-run decode call of deepseek-v3's bf16 run
@@ -2340,14 +2372,15 @@ def phase_kernels(torch, card, paths, scans, attn_long, split_long,
             f"{k['launches_by_path']}, {k['ms']:.4f} ms (plain "
             f"{k['plain_ms']:.4f} ms{lib}, bound {k['bound_ms']:.6f} ms by "
             f"{k['bound_by']}) at {k['shape']}")
-        for sub in ("contiguous", "verify", "verify_contiguous"):
+        for sub in ("contiguous", "verify", "verify_contiguous") + ARCH_SUBS:
             if sub not in k:
                 continue
             c = k[sub]
             lib = ("" if c["library_ms"] is None
                    else f", library {c['library_ms']:.4f} ms")
+            run = "the speculative" if sub.startswith("verify") else "its"
             log(f"[kernel] {k['name']} {sub}"
-                + (f" ({c['launches']} launches in the speculative run, "
+                + (f" ({c['launches']} launches in {run} run, "
                    f"{c['card']})" if "launches" in c else "")
                 + f": {c['ms']:.4f} ms (plain {c['plain_ms']:.4f} ms{lib}, "
                 f"bound {c['bound_ms']:.6f} ms by {c['bound_by']}) at "
@@ -2954,9 +2987,10 @@ def _legal_margin(torch, eng, req, ids):
         if sess.checker is not None:
             sess.checker.advance(int(t))
     full = list(sess.prompt_ids) + list(ids)
-    cache = eng.model.init_cache(1, MAX_LEN, device="cuda")
-    lg, _ = eng.model.prefill(
-        eng.params, {"tokens": torch.tensor([full], device="cuda")}, cache)
+    cache = eng.model.init_cache(1, eng.max_len, device="cuda")
+    inputs = dict(req.extra_inputs or {})
+    inputs["tokens"] = torch.tensor([full], device="cuda")
+    lg, _ = eng.model.prefill(eng.params, inputs, cache)
     row = lg[0, -1, :eng.tok.vocab_size].float()
     if sess.checker is not None:
         legal = torch.as_tensor(sess.checker.mask(), device="cuda")
@@ -2966,10 +3000,10 @@ def _legal_margin(torch, eng, req, ids):
     return (top[0] - top[1]).item()
 
 
-def same_ids(torch, eng, reqs, got, want, what):
+def same_ids(torch, eng, reqs, got, want, what, tag="[prefix]"):
     """Ids and statuses equal, or parted at a step whose top-2 legal margin
-    (printed) is below ``MARGIN_NOISE``.  ``eng`` is a float32 engine.
-    Returns the number of such near-tie divergences."""
+    (printed after ``tag``) is below ``MARGIN_NOISE``.  ``eng`` is a
+    float32 engine.  Returns the number of such near-tie divergences."""
     n = 0
     for i, (a, b) in enumerate(zip(got, want)):
         if (a.token_ids, a.status) == (b.token_ids, b.status):
@@ -2978,7 +3012,7 @@ def same_ids(torch, eng, reqs, got, want, what):
                                                    b.token_ids))
                   if x != y), min(len(a.token_ids), len(b.token_ids)))
         m = _legal_margin(torch, eng, reqs[i], a.token_ids[:k])
-        log(f"[prefix] {what}: request {i} parts at step {k} ({a.status} "
+        log(f"{tag} {what}: request {i} parts at step {k} ({a.status} "
             f"{a.n_tokens} tokens against {b.status} {b.n_tokens}); top-2 "
             f"legal logit margin there {m:.3e}")
         if m >= MARGIN_NOISE:
@@ -3773,6 +3807,349 @@ def phase_training(torch, card):
     return {"a": a, "c": c, "d": d}
 
 
+# -- phase 11 -------------------------------------------------------------------
+
+
+ARCH_MODELS = ("gemma3-27b", "llava-next-mistral-7b", "whisper-tiny")
+# gemma3-27b in float32 is 108 GB at full depth: the 6-layer group once plus
+# the 2-layer tail (4.71 B parameters); bfloat16 runs all 62 layers
+ARCH_DEPTH = {"gemma3-27b": {"float32": 8}}
+# gemma3: one prompt of more than the 1024-token window, so the ring wraps;
+# llava: the 2880-token patch prefix before every prompt
+ARCH_MAX_LEN = {"gemma3-27b": 2048, "llava-next-mistral-7b": 4096,
+                "whisper-tiny": MAX_LEN}
+LONG_PROMPT_TOKENS = 1010
+ARCH_TAG = "[archs]"
+# phase 7's sub-entries of the kernels on phase 11's paths
+ARCH_SUBS = ("whisper", "gemma3", "llava", "int8")
+
+
+def _long_prompt(tok, n):
+    """A prompt of about ``n`` tokens (at least n - 8) for the tokenizer."""
+    unit = ("A log of the sensor readings, each a JSON record of its name, "
+            "time and value, sorted by time and checked twice. ")
+    text = unit
+    while len(tok.encode(text)) < n:
+        text += unit
+    words = text.split(" ")
+    while len(tok.encode(" ".join(words))) > n:
+        words.pop()
+    return " ".join(words) + ": "
+
+
+def _arch_requests(torch, tok, cfg, long_prompt=None):
+    """4 DOMINO JSON requests of ``MAX_TOKENS`` tokens, each with its
+    seeded extra inputs on the card: a VLM's (1, P, d_model) patch prefix,
+    an encoder-decoder's (1, T_enc, d_model) frames."""
+    from repro_torch.serving import ConstraintSpec, DecodeParams, Request
+    reqs = []
+    for i in range(N_REQUESTS):
+        extra = None
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(100 + i)
+        if cfg.family == "vlm":
+            extra = {"prefix": torch.randn((1, cfg.n_prefix_tokens,
+                                            cfg.d_model), generator=gen,
+                                           device="cuda")}
+        elif cfg.is_encoder_decoder:
+            extra = {"frames": torch.randn((1, cfg.encoder_seq_len,
+                                            cfg.d_model), generator=gen,
+                                           device="cuda")}
+        prompt = (long_prompt if long_prompt is not None and i == 0
+                  else PROMPTS[i % len(PROMPTS)])
+        reqs.append(Request(prompt,
+                            ConstraintSpec(grammar="json", mode="domino"),
+                            DecodeParams(max_tokens=MAX_TOKENS, seed=i),
+                            extra_inputs=extra))
+    return reqs
+
+
+def _cache_bytes(cache) -> int:
+    return sum(v.numel() * v.element_size() for v in _leaves(
+        {k: cache[k] for k in ("head", "tail", "group")}))
+
+
+def _argmax_entry(torch, call, what):
+    """Kernel #2 on a recorded call's logits and packed words: bitwise
+    against the plain version, its time, the plain version's and its
+    bound."""
+    from repro_torch.kernels.masked_sample.kernel import masked_argmax_packed
+    from repro_torch.kernels.masked_sample.ref import masked_argmax_ref
+    (logits, bits), _ = call
+    i1, v1 = masked_argmax_packed(logits, bits)
+    i2, v2 = masked_argmax_ref(logits, bits)
+    torch.cuda.synchronize()
+    if not (torch.equal(i1, i2) and torch.equal(v1, v2)):
+        raise AssertionError(f"masked argmax differs on {what} inputs")
+    b, v = logits.shape
+    bnd, bnd_by = bound_ms(b * v * logits.element_size() + bits.numel() * 4
+                           + b * 8, b * v, "float32")
+    return {"max_abs_err": (v1 - v2).abs().max().item(),
+            "shape": f"B={b} V={v} row stride {logits.stride(0)} ({what})",
+            "ms": time_ms(torch, lambda: masked_argmax_packed(logits, bits)),
+            "plain_ms": time_ms(torch, lambda: masked_argmax_ref(logits,
+                                                                 bits)),
+            "bound_ms": bnd, "bound_by": bnd_by, "library_ms": None}
+
+
+def arch_kernel_entries(torch, card, paths):
+    """Phase 7's sub-entries on phase 11's paths, by kernel: #1 on a
+    mid-run decode call of whisper's and gemma3's bf16 runs and of gemma3's
+    f32 run over the dequantized int8 cache; #2 on a mid-run tick of each
+    architecture's bf16 run.  Each with that run's launches and the
+    card."""
+    out = {"decode_attention": {}, "masked_argmax_packed": {}}
+    for sub, path, dtype in (("whisper", "whisper-tiny", "bfloat16"),
+                             ("gemma3", "gemma3-27b", "bfloat16"),
+                             ("int8", "gemma3-27b int8", "float32")):
+        if path in paths:
+            out["decode_attention"][sub] = dict(_attn_entry(
+                torch, _mid_decode_call(
+                    paths[path]["calls"]["decode_attention"], 1), path,
+                dtype), launches=paths[path]["counts"]["decode_attention"],
+                card=card)
+    for sub, path in (("gemma3", "gemma3-27b"),
+                      ("llava", "llava-next-mistral-7b"),
+                      ("whisper", "whisper-tiny")):
+        if path in paths:
+            calls = paths[path]["calls"]["masked_argmax_packed"]
+            out["masked_argmax_packed"][sub] = dict(
+                _argmax_entry(torch, calls[len(calls) // 2], path),
+                launches=paths[path]["counts"]["masked_argmax_packed"],
+                card=card)
+    return out
+
+
+def phase_archs(torch, shared):
+    """Phase 11: gemma3-27b, llava-next-mistral-7b and whisper-tiny served
+    at their published widths; returns, by architecture, the bf16 run's
+    launches and its recorded kernel calls (for phase 7), and the int8
+    run's."""
+    out = {}
+    for arch in ARCH_MODELS:
+        t0 = time.perf_counter()
+        out.update(_arch_serve(torch, arch, shared))
+        log(f"{ARCH_TAG} {arch}: {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+def _arch_serve(torch, arch, shared):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops as attn_ops
+    from repro_torch.kernels.masked_sample import ops as mask_ops
+    from repro_torch.models import build_model, kvcache
+    from repro_torch.models import layers as layers_mod
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving.scheduler import ContinuousBatchingScheduler
+
+    tok, json_g = shared["tok"], shared["grammar"]
+    base = get_config(arch)
+    max_len = ARCH_MAX_LEN[arch]
+
+    def cfg_for(dtype, kernels=True, **kw):
+        depth = ARCH_DEPTH.get(arch, {}).get(dtype)
+        cut = {} if depth is None else {"n_layers": depth}
+        return dataclasses.replace(base, dtype=dtype,
+                                   use_pallas_kernels=kernels, **cut, **kw)
+
+    def engine_for(cfg, params=None, device_tables=False):
+        model = build_model(cfg)
+        if params is None:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(0)
+            params = model.init(gen, device="cuda")
+            torch.cuda.synchronize()
+            n = sum(x.numel() for x in _leaves(params))
+            log(f"{ARCH_TAG} {arch} {cfg.dtype} weights drawn on the card "
+                f"in {time.perf_counter() - t0:.1f}s: {cfg.n_layers} layers, "
+                f"{n / 1e9:.2f} B parameters, "
+                f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+                f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        eng = ServingEngine(model, params, tok, max_len=max_len,
+                            device_tables=device_tables, device="cuda")
+        shared["trees"]["json"] = eng.register_grammar(
+            "json", json_g, tree_cache=shared["trees"].get("json"))
+        if device_tables:
+            device_tables_for(eng, shared)
+        return eng
+
+    def counted_run(eng, reqs, cfg, what, hooks=()):
+        with contextlib.ExitStack() as stack:
+            for h in hooks:
+                stack.enter_context(h)
+            fwd = stack.enter_context(ForwardCount(eng))
+            reset_counts()
+            t0 = time.perf_counter()
+            res = eng.generate_batch(reqs, max_batch=N_REQUESTS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+        stats = dict(eng.last_batch_stats)
+        if stats["paged"] or stats["n_fwd"] != fwd.prefill + fwd.n_decode:
+            raise AssertionError(f"{what}: forwards {fwd.prefill} + "
+                                 f"{fwd.decode}, scheduler {stats}")
+        check_launches(cfg, counts, fwd, what)
+        for i, r in enumerate(res):
+            if r.status not in ("ok", "dead_end"):
+                raise AssertionError(f"{what}: request {i} ended "
+                                     f"{r.status}: {r.error}")
+        return res, counts, fwd, stats, wall
+
+    def launches_text(cfg, counts, fwd):
+        return ", ".join(
+            f"{k} {counts[k]}" + (f" = {per[0]} a decode forward x "
+                                  f"{fwd.n_decode}" if per else
+                                  f" ({counts[k] / fwd.n_decode:.2f} a tick)")
+            for k, per in path_kernels(cfg).items())
+
+    log(f"{ARCH_TAG} {describe(base)}, "
+        + (f"sliding window {base.sliding_window}, " if base.sliding_window
+           else "")
+        + (f"{base.n_prefix_tokens}-token patch prefix, " if base.family ==
+           "vlm" else "")
+        + (f"{base.n_encoder_layers} encoder layers over "
+           f"{base.encoder_seq_len} frames, " if base.is_encoder_decoder
+           else "")
+        + f"dense rows, max_len {max_len}"
+        + (f"; depth cut to {ARCH_DEPTH[arch]}" if arch in ARCH_DEPTH
+           else ""))
+    long_prompt = None
+    if arch == "gemma3-27b":
+        long_prompt = _long_prompt(tok, LONG_PROMPT_TOKENS)
+    requests = _arch_requests(torch, tok, base, long_prompt)
+    n_pos = [len(tok.encode(r.prompt)) + (base.n_prefix_tokens
+                                          if base.family == "vlm" else 0)
+             for r in requests]
+
+    # (a) float32 through the kernels against the plain path
+    cfg32 = cfg_for("float32")
+    eng_k = engine_for(cfg32)
+    eng_p = engine_for(cfg_for("float32", False), params=eng_k.params)
+    res_k, counts, fwd, stats, wall = counted_run(
+        eng_k, requests, cfg32, f"{arch} f32 kernel run")
+    res_p = eng_p.generate_batch(requests, max_batch=N_REQUESTS)
+    n_near = same_ids(torch, eng_p, requests, res_k, res_p,
+                      f"{arch} f32 kernels vs plain", tag=ARCH_TAG)
+    top = max(n + r.n_tokens for n, r in zip(n_pos, res_k))
+    w = base.sliding_window
+    wraps = w is not None and w < max_len
+    if wraps and top <= w:
+        raise AssertionError(f"{arch}: no row passed the {w}-slot ring")
+    log(f"{ARCH_TAG} {arch} f32: kernel path == plain path (ids, statuses) "
+        f"for every request ({n_near} near-tie partings); launches "
+        f"{launches_text(cfg32, counts, fwd)}; {fwd.prefill} admissions; "
+        f"positions a row reached: {[n + r.n_tokens for n, r in zip(n_pos, res_k)]}"
+        + (f" (the {w}-slot ring wrapped)" if wraps else "")
+        + f"; tokens {[r.n_tokens for r in res_k]}; {wall:.2f}s")
+
+    out = {}
+    # (c) gemma3 with the int8 KV cache, kernels against plain
+    if arch == "gemma3-27b":
+        cfg8 = cfg_for("float32", kv_cache_dtype="int8")
+        eng_k8 = engine_for(cfg8, params=eng_k.params)
+        eng_p8 = engine_for(cfg_for("float32", False,
+                                    kv_cache_dtype="int8"),
+                            params=eng_k.params)
+        # every 8th call: each keeps its dequantized f32 stripes alive
+        rec8 = Recorder(attn_ops, "decode_attention_cuda",
+                        8 * path_kernels(cfg8)["decode_attention"][0])
+        res_k8, counts8, fwd8, _, wall8 = counted_run(
+            eng_k8, requests, cfg8, f"{arch} f32 int8-KV kernel run",
+            hooks=(rec8,))
+        res_p8 = eng_p8.generate_batch(requests, max_batch=N_REQUESTS)
+        n8 = same_ids(torch, eng_p8, requests, res_k8, res_p8,
+                      f"{arch} f32 int8 KV kernels vs plain", tag=ARCH_TAG)
+        same_native = [a.token_ids == b.token_ids
+                       for a, b in zip(res_k8, res_k)]
+        native = _cache_bytes(eng_k.model.init_cache(N_REQUESTS, max_len,
+                                                     device="cuda"))
+        quant = _cache_bytes(eng_k8.model.init_cache(N_REQUESTS, max_len,
+                                                     device="cuda"))
+        log(f"{ARCH_TAG} {arch} f32 int8 KV: kernel path == plain path for "
+            f"every request ({n8} near-tie partings); launches "
+            f"{launches_text(cfg8, counts8, fwd8)}; ids equal to the native "
+            f"cache's: {same_native}; cache at B={N_REQUESTS} max_len "
+            f"{max_len}: {quant / 1e6:.1f} MB int8 (values and bf16 scales) "
+            f"against {native / 1e6:.1f} MB native float32 = "
+            f"{quant / native:.3f}; {wall8:.2f}s")
+        out["int8"] = {"counts": counts8,
+                       "calls": {"decode_attention": rec8.calls}}
+        del eng_k8, eng_p8, res_k8, res_p8
+
+    # (d) whisper through the device loop against the host loop
+    if arch == "whisper-tiny":
+        eng_d = engine_for(cfg32, params=eng_k.params, device_tables=True)
+        res_e, sched, counts_e, fwd_e, audit, wall_e = fused_run(
+            torch, eng_d, requests, check_replay=True)
+        st = sched.stats()
+        n_tok = sum(r.n_tokens for r in res_e)
+        for i, (a, b) in enumerate(zip(res_e, res_k)):
+            if (a.token_ids, a.status) != (b.token_ids, b.status):
+                raise AssertionError(
+                    f"{arch} f32 request {i}: the device loop ({a.status}, "
+                    f"{a.n_tokens} tokens) and the host loop ({b.status}, "
+                    f"{b.n_tokens}) differ; trail {audit.trail}")
+        line = check_fused(cfg32, sched, counts_e, fwd_e, audit,
+                           f"{arch} f32 device loop")
+        rate = st["n_host_syncs"] / max(n_tok, 1)
+        if st["n_device_tokens"] == 0 or rate > 1 / sched.sync_n + 0.1 \
+                or audit.replay_ok is not True:
+            raise AssertionError(f"{arch} f32 device loop: {st}, replay "
+                                 f"{audit.replay_ok}")
+        log(f"{ARCH_TAG} {arch} f32 device loop (sync_n {sched.sync_n}): "
+            f"ids and statuses == the host loop's; {n_tok} tokens, "
+            f"{st['n_device_tokens']} committed by fused blocks, "
+            f"{st['n_host_syncs']} host syncs ({rate:.3f} a token); a "
+            f"replayed block == the same block run eagerly; {line}; "
+            f"{wall_e:.2f}s")
+        del eng_d, sched, res_e
+    del eng_k, eng_p, res_k, res_p
+    torch.cuda.empty_cache()
+
+    # (b) bfloat16 through the kernels
+    cfg16 = cfg_for("bfloat16")
+    eng = engine_for(cfg16)
+    eng.generate_batch(requests, max_batch=N_REQUESTS)        # warm-up
+    torch.cuda.synchronize()
+    per = path_kernels(cfg16)
+    recs = {"masked_argmax_packed": Recorder(mask_ops,
+                                             "masked_argmax_packed")}
+    if "decode_attention" in per:
+        recs["decode_attention"] = Recorder(attn_ops, "decode_attention_cuda",
+                                            per["decode_attention"][0])
+    phases = PhaseTimer(ContinuousBatchingScheduler)
+    res, counts, fwd, stats, wall = counted_run(
+        eng, requests, cfg16, f"{arch} bf16 run",
+        hooks=(*recs.values(), phases))
+    ticks = stats["n_decode"]
+    n_tok = sum(r.n_tokens for r in res)
+    log(f"{ARCH_TAG} {arch} bf16: {n_tok} tokens in {wall:.3f}s = "
+        f"{n_tok / wall:.1f} tok/s; {ticks} decode ticks, {fwd.prefill} "
+        f"admissions; statuses {[r.status for r in res]}; launches "
+        f"{launches_text(cfg16, counts, fwd)}; a tick: "
+        + ", ".join(f"{k} {counts[k] / ticks:.2f}" for k in per))
+    if "decode_attention" in recs:
+        (q, *_, ln), _ = _mid_decode_call(recs["decode_attention"].calls, 1)
+        lengths = (ln - 1).clone()
+    else:
+        lengths = torch.tensor([min(n + MAX_TOKENS // 2, max_len - 1)
+                                for n in n_pos], dtype=torch.int32,
+                               device="cuda")
+    _tick_breakdown(torch, eng, arch, res, wall, ticks, phases.seconds,
+                    lengths, None, layers_mod)
+    out[arch] = {"counts": counts,
+                 "calls": {k: r.calls for k, r in recs.items() if r.calls}}
+    del eng, res, recs
+    torch.cuda.empty_cache()
+    log(f"{ARCH_TAG} {arch} weights freed: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
+    return {(arch if k == arch else f"{arch} {k}"): v for k, v in out.items()}
+
+
 def log_prefix_entry(name, e):
     log(f"[kernel] {name} prefix ({e['launches']} launches in the warm run, "
         f"{e['prefill_launches']} on cached prefills, {e['dtype']}, "
@@ -3785,7 +4162,7 @@ def _finite(k) -> bool:
     nums = [k[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms",
                                "max_abs_err")]
     for sub in ("contiguous", "long", "long_cold", "verify",
-                "verify_contiguous", "prefix"):
+                "verify_contiguous", "prefix") + ARCH_SUBS:
         if sub in k:
             nums += [k[sub].get(key) for key in ("ms", "plain_ms", "bound_ms",
                                                  "library_ms", "max_abs_err")]
@@ -3842,6 +4219,8 @@ def main() -> int:
                  for arch in MODELS}
         paths[MASK_OP_PATH] = timed("masked_argmax op", phase_mask_op, torch,
                                     paths["deepseek-v3-671b"])
+        paths.update(timed("other architectures", phase_archs, torch,
+                           shared))
         kernels = timed("kernels", phase_kernels, torch, card, paths, scans,
                         attn_long, split_long, argmax_long)
         timed("faults and durability", phase_faults, torch, card, shared)

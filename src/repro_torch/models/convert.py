@@ -3,7 +3,9 @@ both ways (``params_from_numpy``, ``params_to_numpy``; an AdamW state's
 moments too).
 
 The JAX package stacks a repeated group's layer params on a leading
-``reps`` axis; the port keeps one dict per layer.  A ``shared_attn``
+``reps`` axis, and an encoder-decoder's encoder blocks
+(``encoder["blocks"]``) on a leading layer axis; the port keeps one dict
+per layer in both.  A ``shared_attn``
 block's weights live once at ``stack["shared_attn"]`` (its group slot is
 empty).  Leaves arrive as numpy arrays (a caller converts them with
 ``np.asarray``; bf16 leaves cross as float32, which holds every bf16 value
@@ -68,7 +70,14 @@ def reference_layout(params: Dict[str, Any], leaf, stack,
     """The port's params in ``repro``'s layout: ``leaf(tensor)`` on every
     leaf, the group's per-layer leaves joined by ``stack(list)``, a
     shared block's empty group slot an empty dict."""
-    out = {k: tree_map(leaf, v) for k, v in params.items() if k != "stack"}
+    out = {k: tree_map(leaf, v) for k, v in params.items()
+           if k not in ("stack", "encoder")}
+    if "encoder" in params:
+        enc = params["encoder"]
+        out["encoder"] = {
+            "blocks": _stack(stack, [tree_map(leaf, b)
+                                     for b in enc["blocks"]]),
+            "norm": tree_map(leaf, enc["norm"])}
     st = params["stack"]
     group = {}
     for name, layers in st["group"].items():
@@ -139,16 +148,24 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
     def conv(t, path=()):
         return tree_map(to_t, t, with_path=True, path=path)
 
-    out = {k: conv(v, (k,)) for k, v in tree.items() if k != "stack"}
+    def unstack(g, n):
+        return [tree_map(lambda a, path, r=r: to_t(np.asarray(a)[r], path),
+                         g, with_path=True) for r in range(n)]
+
+    out = {k: conv(v, (k,)) for k, v in tree.items()
+           if k not in ("stack", "encoder")}
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        out["encoder"] = {"blocks": unstack(enc["blocks"],
+                                            cfg.n_encoder_layers),
+                          "norm": conv(enc["norm"], ("encoder", "norm"))}
     stack = tree["stack"]
     _, reps, _, _ = cfg.layer_program
     out["stack"] = {
         "head": conv(list(stack["head"])),
         "tail": conv(list(stack["tail"])),
         # an empty slot (a shared block's) stays an empty list
-        "group": {name: ([tree_map(lambda a, path, r=r: to_t(
-                              np.asarray(a)[r], path), g, with_path=True)
-                          for r in range(reps)] if g else [])
+        "group": {name: (unstack(g, reps) if g else [])
                   for name, g in stack["group"].items()},
     }
     if "shared_attn" in stack:

@@ -4,10 +4,17 @@ per-slot block tables (``repro.models.kvcache``'s layout).
 Dense: ``attn``/``shared_attn`` k/v (B, T_max, n_kv, d_head); ``mla`` the
 latent ``ckv`` (B, T_max, kv_lora_rank) and the rope key ``krope``
 (B, T_max, 1, qk_rope_head_dim); ``moe`` whichever its attention is (MLA if
-``cfg.mla`` else k/v); validity = pos < len.  SSM blocks (``mamba1``/``mamba2``) keep O(1) state a row and
-stay dense: ``conv`` (B, d_conv-1, C) in the config's dtype (the last
-inputs of the causal conv) and ``ssm`` in float32, (B, d_inner, N) for
-Mamba1 and (B, n_heads, head_dim, N) for Mamba2.
+``cfg.mla`` else k/v); validity = pos < len.  ``swa`` keeps a ring
+(B, W, n_kv, d_head), W = min(sliding_window, T_max), with a per-row
+slot->position map ``pos`` (B, W) int32 that starts at -1 (an empty slot).
+``xattn`` (whisper's decoder block) keeps the self-attention stripe plus the
+encoder's ``xk``/``xv`` (B, encoder_seq_len, n_kv, d_head), written once at
+prefill.  With ``kv_cache_dtype="int8"`` every K/V layout (stripe, pool and
+ring) stores int8 ``k``/``v`` with bfloat16 per-(token, head) scales
+``k_scale``/``v_scale`` (..., n_kv).  SSM blocks (``mamba1``/``mamba2``)
+keep O(1) state a row and stay dense: ``conv`` (B, d_conv-1, C) in the
+config's dtype (the last inputs of the causal conv) and ``ssm`` in float32,
+(B, d_inner, N) for Mamba1 and (B, n_heads, head_dim, N) for Mamba2.
 Paged (``init_cache(..., page_size=ps)``): k/v are a POOL
 (n_pages, ps, n_kv, d_head) -- MLA's ckv/krope likewise (n_pages, ps, ...)
 -- shared by all slots plus ``cache["pages"]``, a
@@ -15,13 +22,15 @@ Paged (``init_cache(..., page_size=ps)``): k/v are a POOL
 p of row b lives at pool row ``pages[b, p // ps]``, offset ``p % ps``.  Page
 0 is the trash page: unallocated table entries point at it, so writes from
 vacant slots land somewhere harmless; allocators hand out pages 1..n-1.
+Rings, SSM states and encoder K/V stay dense (``pageable``).
 
 The cache of a repeated group of layers carries a leading ``reps`` axis, as
 in the JAX package, so ``cache["group"]["b0"]["k"][i]`` is layer i's stripe
 or pool.  ``len`` is a scalar int32 for the whole model or a (B,) vector
 for ragged batched serving.  Entries at positions >= len are garbage by
-contract; every reader masks by pos < len.  The port updates caches in
-place (the JAX package returns new ones) and returns them.
+contract; every reader masks by pos < len (a ring by its ``pos`` map).  The
+port updates caches in place (the JAX package returns new ones) and
+returns them.
 """
 from __future__ import annotations
 
@@ -34,20 +43,17 @@ from repro_torch.models.layers import torch_dtype
 
 # block kinds whose cache can take the paged pool layout
 PAGEABLE_KINDS = ("attn", "shared_attn", "mla", "moe")
-# block kinds this port runs so far
-PORTED_KINDS = ("attn", "shared_attn", "mla", "moe", "mamba1", "mamba2")
+# every block kind of the JAX package's model zoo
+BLOCK_KINDS = ("attn", "swa", "shared_attn", "mla", "moe", "mamba1",
+               "mamba2", "xattn")
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise for an architecture whose blocks this port does not run yet."""
+    """Raise for a block kind the JAX package does not know either."""
     head, reps, group, tail = cfg.layer_program
-    kinds = set(head) | set(group) | set(tail)
-    missing = sorted(kinds - set(PORTED_KINDS))
-    if missing or cfg.is_encoder_decoder or cfg.kv_cache_dtype != "native":
-        raise NotImplementedError(
-            f"{cfg.arch_id}: block kinds {missing or kinds}, encoder-decoder "
-            f"or an int8 KV cache are not ported to repro_torch yet "
-            f"(ROADMAP Queue 1, 'other architectures')")
+    unknown = sorted((set(head) | set(group) | set(tail)) - set(BLOCK_KINDS))
+    if unknown:
+        raise ValueError(f"{cfg.arch_id}: unknown block kinds {unknown}")
 
 
 def pageable(cfg: ModelConfig) -> bool:
@@ -67,7 +73,8 @@ def default_n_pages(batch: int, max_len: int, page_size: int) -> int:
 def _block_cache(cfg: ModelConfig, kind: str, lead, t: int, dtype,
                  device) -> dict:
     """Zero cache of one block: ``lead`` is (B,) or (n_pages,) -- with the
-    group's (reps,) in front -- and ``t`` the stripe or page length."""
+    group's (reps,) in front -- and ``t`` the stripe or page length (a
+    ring's slots are the first min(sliding_window, t) of it)."""
     if kind in ("mamba1", "mamba2"):
         s = cfg.ssm
         d_in = s.expand * cfg.d_model
@@ -86,9 +93,28 @@ def _block_cache(cfg: ModelConfig, kind: str, lead, t: int, dtype,
                                    dtype=dtype, device=device),
                 "krope": torch.zeros(tuple(lead) + (t, 1, m.qk_rope_head_dim),
                                      dtype=dtype, device=device)}
-    shape = tuple(lead) + (t, cfg.n_kv_heads, cfg.d_head)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    nkv, dh = cfg.n_kv_heads, cfg.d_head
+    if kind == "swa":
+        t = min(cfg.sliding_window or t, t)
+    quant = cfg.kv_cache_dtype == "int8"
+    kv_dt = torch.int8 if quant else dtype
+    shape = tuple(lead) + (t, nkv, dh)
+    out = {"k": torch.zeros(shape, dtype=kv_dt, device=device),
+           "v": torch.zeros(shape, dtype=kv_dt, device=device)}
+    if quant:
+        for name in ("k_scale", "v_scale"):
+            out[name] = torch.zeros(tuple(lead) + (t, nkv),
+                                    dtype=torch.bfloat16, device=device)
+    if kind == "swa":
+        # per-row slot->position map, -1 = empty: rows of a continuous
+        # batch sit at different positions, so each carries its own ring
+        out["pos"] = torch.full(tuple(lead) + (t,), -1, dtype=torch.int32,
+                                device=device)
+    if kind == "xattn":
+        enc = tuple(lead) + (cfg.encoder_seq_len, nkv, dh)
+        out["xk"] = torch.zeros(enc, dtype=dtype, device=device)
+        out["xv"] = torch.zeros(enc, dtype=dtype, device=device)
+    return out
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -142,6 +168,15 @@ def page_size_of(cache) -> Optional[int]:
 RECURRENT_LEAVES = ("conv", "ssm")
 
 
+def _state_leaves(blk) -> tuple:
+    """Names of ``blk``'s leaves a forward overwrites below ``len``: the
+    recurrent state, or every leaf of a ring (a write at position p evicts
+    p - W, which a later query still sees once p is rolled back)."""
+    if "pos" in blk:
+        return tuple(blk)
+    return tuple(n for n in RECURRENT_LEAVES if n in blk)
+
+
 def _block_pairs(a, b):
     """(block of ``a``, the same block of ``b``) over a cache's head, tail
     and group blocks."""
@@ -151,17 +186,17 @@ def _block_pairs(a, b):
 
 def snapshot_state(cache, into=None) -> dict:
     """A cache-shaped view of ``cache`` as it stands before a forward, for a
-    speculative refeed: ``len`` and every recurrent leaf (``conv``, ``ssm``)
-    copied -- into ``into``'s buffers when given, so a caller allocates
-    them once -- and every other leaf aliased.  K/V stripes and pools need
+    speculative refeed: ``len``, every recurrent leaf (``conv``, ``ssm``)
+    and every leaf of a sliding-window ring copied -- into ``into``'s
+    buffers when given, so a caller allocates them once -- and every other
+    leaf aliased.  K/V stripes and pools (and whisper's encoder K/V) need
     no copy: a forward writes them only at positions >= len, which a
     rewound len masks and a refeed rewrites."""
     def block(src, dst):
         out = dict(src)
-        for name in RECURRENT_LEAVES:
-            if name in src:
-                out[name] = (src[name].clone() if dst is None
-                             else dst[name].copy_(src[name]))
+        for name in _state_leaves(src):
+            out[name] = (src[name].clone() if dst is None
+                         else dst[name].copy_(src[name]))
         return out
 
     snap = dict(cache, len=cache["len"].clone())
@@ -174,11 +209,10 @@ def snapshot_state(cache, into=None) -> dict:
 
 
 def restore_state(cache, snap) -> dict:
-    """Write ``snap``'s recurrent leaves and ``len`` (from
+    """Write ``snap``'s copied leaves and ``len`` (from
     :func:`snapshot_state`) back into ``cache``; returns ``cache``."""
     for dst, src in _block_pairs(cache, snap):
-        for name in RECURRENT_LEAVES:
-            if name in dst:
-                dst[name].copy_(src[name])
+        for name in _state_leaves(dst):
+            dst[name].copy_(src[name])
     cache["len"] = snap["len"]
     return cache

@@ -8,10 +8,13 @@
   decode_step(params, cache, tokens) -> (logits (B,S_new,V), cache)
   rollback(cache, n_tokens)          -> cache
 
-mirroring ``repro.models.model`` for the block kinds ported so far
-(``kvcache.PORTED_KINDS``: dense attention, zamba2's shared attention, MLA,
-MoE and the Mamba1/Mamba2 SSM blocks).  Params are nested dicts of tensors; caches
-are updated in place and returned.
+mirroring ``repro.models.model`` for every block kind of its zoo
+(``kvcache.BLOCK_KINDS``: full and sliding-window attention, zamba2's
+shared attention, MLA, MoE, the Mamba1/Mamba2 SSM blocks and whisper's
+encoder-decoder block).  ``inputs`` may carry a VLM's ``prefix`` (B, P, D),
+embedded before the tokens, and an encoder-decoder's ``frames``
+(B, T_enc, D), run through the bidirectional encoder.  Params are nested
+dicts of tensors; caches are updated in place and returned.
 ``tokens`` in decode_step may carry S_new > 1 (one forward scores a
 speculative chain).  ``loss`` is differentiable: autograd takes the
 gradient of every parameter, the group's repetitions rematerialized and
@@ -23,13 +26,15 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import kvcache
 from repro_torch.models.layers import (dense_init, rmsnorm, rmsnorm_init,
                                        torch_dtype)
-from repro_torch.models.transformer import Ctx, stack_apply, stack_init
+from repro_torch.models.transformer import (Ctx, block_apply, block_init,
+                                            stack_apply, stack_init)
 
 Params = Dict[str, Any]
 NEG = -1e30
@@ -64,6 +69,13 @@ class Model:
             params["lm_head"] = dense_init(
                 generator, (cfg.d_model, self.padded_vocab), dtype=dt,
                 device=dev)
+        if cfg.is_encoder_decoder:
+            # one dict a layer (the JAX package stacks them on an axis)
+            params["encoder"] = {
+                "blocks": [block_init(generator, cfg, "attn", dev)
+                           for _ in range(cfg.n_encoder_layers)],
+                "norm": rmsnorm_init(cfg.d_model, dt, dev),
+            }
         return params
 
     # -- embedding / head -------------------------------------------------------
@@ -81,17 +93,65 @@ class Model:
             logits[..., self.cfg.vocab_size:] = NEG
         return logits
 
+    # -- encoder (whisper): bidirectional stack over stub frame embeddings ---
+
+    def _encode(self, params: Params, frames: torch.Tensor,
+                train: bool) -> torch.Tensor:
+        """Sinusoidal positions added to ``frames`` (B, T, D), then the
+        encoder's ``attn`` blocks with every position 0 (the causal bias
+        never masks).  With ``train`` and grad enabled each block runs
+        under activation checkpointing, as the JAX package remats its
+        encoder scan."""
+        cfg = self.cfg
+        b, t, _ = frames.shape
+        dev = frames.device
+        pos = torch.arange(t, dtype=torch.float32, device=dev)[:, None]
+        dim = torch.arange(cfg.d_model // 2, dtype=torch.float32,
+                           device=dev)[None, :]
+        ang = pos / torch.pow(10000.0, 2 * dim / cfg.d_model)
+        pe = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+        x = frames + pe[None].to(frames.dtype)
+        ctx = Ctx(mode="train",
+                  q_pos=torch.zeros((b, t), dtype=torch.int32, device=dev))
+
+        def block(h, p):
+            return block_apply(p, cfg, "attn", h, ctx, None)[0]
+
+        remat = train and torch.is_grad_enabled()
+        for p in params["encoder"]["blocks"]:
+            x = (checkpoint(block, x, p, use_reentrant=False) if remat
+                 else block(x, p))
+        return rmsnorm(params["encoder"]["norm"], x, cfg.rms_eps)
+
+    def _assemble(self, params: Params, inputs: Dict[str, Any],
+                  train: bool = False
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(x (B,S,D), encoder output or None): a VLM's ``prefix`` goes
+        before the token embeddings, an encoder-decoder's ``frames``
+        through the encoder, both in the model's dtype."""
+        cfg = self.cfg
+        x = self._embed(params, inputs["tokens"])
+        enc_out = None
+        if cfg.family == "vlm" and "prefix" in inputs:
+            x = torch.cat([inputs["prefix"].to(x.dtype), x], dim=1)
+        if cfg.is_encoder_decoder:
+            enc_out = self._encode(params, inputs["frames"].to(x.dtype),
+                                   train)
+        return x, enc_out
+
     # -- train ----------------------------------------------------------------
 
     def train_logits(self, params: Params, inputs: Dict[str, Any]
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Causal logits over the whole of ``inputs["tokens"]`` (B, S), no
-        cache, with the summed aux loss (float32 scalar)."""
-        x = self._embed(params, inputs["tokens"])
+        """Causal logits over the whole of ``inputs["tokens"]`` (B, S) --
+        after a VLM's prefix -- no cache, with the summed aux loss (float32
+        scalar)."""
+        x, enc_out = self._assemble(params, inputs, train=True)
         b, s, _ = x.shape
         pos = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
         x, aux = stack_apply(params["stack"], self.cfg, x,
-                             Ctx(mode="train", q_pos=pos), None)
+                             Ctx(mode="train", q_pos=pos, enc_out=enc_out),
+                             None)
         return self._head(params, x), torch.as_tensor(
             aux, dtype=torch.float32, device=x.device)
 
@@ -129,12 +189,15 @@ class Model:
         cache).  ``inputs`` may carry an int ``length``: the prompt is then
         right-padded to a bucket and only the first ``length`` tokens are
         real -- the head reads the true last token and ``len`` advances by
-        ``length``, so pad K/V sits beyond the valid frontier."""
-        tokens = inputs["tokens"]
-        x = self._embed(params, tokens)
+        ``length``, so pad K/V sits beyond the valid frontier (full
+        attention and MLA only: a ring or a recurrent state would take the
+        pads in).  A VLM's prefix counts toward the positions; whisper's
+        encoder K/V is written into the cache here."""
+        x, enc_out = self._assemble(params, inputs)
         b, s, _ = x.shape
         pos = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
-        ctx = Ctx(mode="prefill", q_pos=pos, cache_len=cache["len"])
+        ctx = Ctx(mode="prefill", q_pos=pos, cache_len=cache["len"],
+                  enc_out=enc_out)
         x, _ = stack_apply(params["stack"], self.cfg, x, ctx, cache)
         length = inputs.get("length")
         if length is None:
@@ -163,11 +226,38 @@ class Model:
     def rollback(self, cache, n_tokens: int):
         """Speculative rollback: rewind ``len`` (entries beyond len are
         masked by validity, so nothing is copied).  Recurrent state
-        (Mamba1/Mamba2 ``conv``/``ssm``) cannot be rewound: the serving
-        engine refeeds such caches from ``kvcache.snapshot_state`` taken
-        before the verify forward instead."""
+        (Mamba1/Mamba2 ``conv``/``ssm``) and sliding-window rings cannot be
+        rewound: the serving engine refeeds such caches from
+        ``kvcache.snapshot_state`` taken before the verify forward
+        instead."""
         out = dict(cache)
         out["len"] = cache["len"] - n_tokens
+        return out
+
+    # -- misc ------------------------------------------------------------------
+
+    def example_batch(self, batch: int, seq: int, seed: int = 0,
+                      device="cuda") -> Dict[str, torch.Tensor]:
+        """A training batch of ``repro``'s ``example_batch`` shapes: tokens
+        (B, seq + 1) drawn from ``seed`` -- a VLM's cut to leave room for
+        its prefix -- and zero ``prefix`` / ``frames`` embeddings."""
+        cfg = self.cfg
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        out = {"tokens": torch.randint(0, cfg.vocab_size, (batch, seq + 1),
+                                       generator=gen, dtype=torch.int64,
+                                       device=dev)}
+        dt = torch_dtype(cfg)
+        if cfg.family == "vlm":
+            p = cfg.n_prefix_tokens
+            out["tokens"] = out["tokens"][:, :max(2, seq + 1 - p)]
+            out["prefix"] = torch.zeros((batch, p, cfg.d_model), dtype=dt,
+                                        device=dev)
+        if cfg.is_encoder_decoder:
+            out["frames"] = torch.zeros(
+                (batch, cfg.encoder_seq_len, cfg.d_model), dtype=dt,
+                device=dev)
         return out
 
 

@@ -6,8 +6,9 @@ leading ``reps`` axis (layer i writes ``cache[...][i]`` in place).  In
 train mode each repetition of the group runs under activation
 checkpointing, as the JAX package remats its scanned group.
 
-Block kinds ported so far:
+Block kinds (every kind of the JAX package):
   attn          GQA transformer block
+  swa           the same over a sliding window, its cache a per-row ring
   shared_attn   zamba2's shared-weight attention block: the ``attn`` math on
                 ONE set of weights (``params["shared_attn"]``) for every
                 invocation, each with its own K/V cache
@@ -15,6 +16,11 @@ Block kinds ported so far:
   moe           MoE-FFN block (attention = MLA if ``cfg.mla`` else GQA)
   mamba1        Mamba1 (selective scan) block, pre-norm and residual
   mamba2        Mamba2 (SSD) block, pre-norm and residual
+  xattn         encoder-decoder decoder block (self + cross attention)
+
+An ``int8`` KV cache (``cfg.kv_cache_dtype``) quantizes each new token's
+K/V per (token, head) as it is written and dequantizes the whole stripe,
+pool or ring in plain code before it is read, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -47,6 +53,7 @@ class Ctx:
     # paged KV serving: (B, max_pages) int32 block table -- position p of
     # row b lives at pool row pages[b, p // ps], offset p % ps
     pages: Optional[torch.Tensor] = None
+    enc_out: Optional[torch.Tensor] = None     # (B, T_enc, D) for xattn
 
     @property
     def ragged(self) -> bool:
@@ -66,7 +73,7 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
                device) -> Params:
     d = cfg.d_model
     dt = torch_dtype(cfg)
-    if kind in ("attn", "shared_attn"):
+    if kind in ("attn", "swa", "shared_attn"):
         return {
             "norm1": rmsnorm_init(d, dt, device),
             "attn": attention_init(gen, cfg, device),
@@ -95,9 +102,16 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
     if kind == "mamba2":
         return {"norm": rmsnorm_init(d, dt, device),
                 "mamba": ssm.mamba2_init(gen, cfg, device)}
-    raise NotImplementedError(
-        f"block kind {kind!r} is not ported to repro_torch yet (ROADMAP "
-        "Queue 1, 'other architectures')")
+    if kind == "xattn":
+        return {
+            "norm1": rmsnorm_init(d, dt, device),
+            "attn": attention_init(gen, cfg, device),
+            "norm_x": rmsnorm_init(d, dt, device),
+            "xattn": attention_init(gen, cfg, device),
+            "norm2": rmsnorm_init(d, dt, device),
+            "mlp": mlp_init(gen, d, cfg.d_ff, dt, device),
+        }
+    raise ValueError(kind)
 
 
 def stack_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
@@ -123,8 +137,11 @@ def stack_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
 
 
 def _self_attention(p: Params, cfg: ModelConfig, xn: torch.Tensor, ctx: Ctx,
-                    cache: Optional[Params]) -> torch.Tensor:
-    """Attention output (B,S,D); writes this step's K/V into ``cache``."""
+                    cache: Optional[Params],
+                    window: Optional[int] = None) -> torch.Tensor:
+    """Attention output (B,S,D); writes this step's K/V into ``cache``.
+    With ``window`` (an ``swa`` block) the decode read is the plain path
+    over [old ring || new keys], as in the JAX package."""
     nq, nkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     b, s, _ = xn.shape
     q = rope(_split_heads(xn @ p["wq"], nq, dh), ctx.q_pos, cfg.rope_theta)
@@ -134,12 +151,23 @@ def _self_attention(p: Params, cfg: ModelConfig, xn: torch.Tensor, ctx: Ctx,
     qg = q.reshape(b, s, nkv, nq // nkv, dh)
 
     if cache is None or ctx.mode == "prefill":
-        out = attention_any(qg, k_new, v_new, ctx.q_pos, ctx.q_pos)
+        out = attention_any(qg, k_new, v_new, ctx.q_pos, ctx.q_pos, window)
         if cache is not None:
-            _write_kv(cache, ctx, k=k_new, v=v_new)
+            _write_kv(cache, ctx, **_kv_leaves(cache, k_new, v_new))
+    elif window is not None:
+        # the ring: with S > 1 (a verify window) the new writes may evict
+        # keys that earlier queries of this very step still see, so attend
+        # over [old ring || new keys], then write
+        k_old, v_old = _read_kv(cache, xn.dtype)
+        k_all = torch.cat([k_old, k_new], dim=1)
+        v_all = torch.cat([v_old, v_new], dim=1)
+        k_pos = torch.cat([cache["pos"], ctx.q_pos], dim=1)
+        out = attention_any(qg, k_all, v_all, ctx.q_pos, k_pos, window,
+                            k_pos >= 0)
+        _write_kv(cache, ctx, **_kv_leaves(cache, k_new, v_new))
     else:  # decode
-        _write_kv(cache, ctx, k=k_new, v=v_new)
-        k_all, v_all = cache["k"], cache["v"]
+        _write_kv(cache, ctx, **_kv_leaves(cache, k_new, v_new))
+        k_all, v_all = _read_kv(cache, xn.dtype)
         if cfg.use_pallas_kernels:
             # hand-written ragged decode kernel: q (B,S,G,Qh,D) against the
             # cache (B,T,G,D) or the (n_pages,ps,G,D) pool through the
@@ -158,6 +186,41 @@ def _self_attention(p: Params, cfg: ModelConfig, xn: torch.Tensor, ctx: Ctx,
             out = attention_any(qg, k_all, v_all, ctx.q_pos, k_pos, None,
                                 k_pos < lim)
     return out.reshape(b, s, nq * dh) @ p["wo"]
+
+
+def _quantize_kv(x: torch.Tensor):
+    """(B,S,H,D) -> int8 values and (B,S,H) bfloat16 scales, one a (token,
+    head): max |x| / 127, at least 1e-8; values rounded half to even, as
+    ``jnp.round`` does."""
+    xf = x.to(torch.float32)
+    scale = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
+
+
+def _dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                   dtype) -> torch.Tensor:
+    return (q.to(torch.float32)
+            * scale.to(torch.float32)[..., None]).to(dtype)
+
+
+def _kv_leaves(cache: Params, k: torch.Tensor, v: torch.Tensor) -> dict:
+    """The leaves a K/V write stores: k/v, or their int8 values and scales
+    when the cache is quantized."""
+    if "k_scale" not in cache:
+        return {"k": k, "v": v}
+    k, k_sc = _quantize_kv(k)
+    v, v_sc = _quantize_kv(v)
+    return {"k": k, "v": v, "k_scale": k_sc, "v_scale": v_sc}
+
+
+def _read_kv(cache: Params, dtype):
+    """The cache's k/v in the compute dtype (an int8 cache dequantized
+    whole, in plain code)."""
+    if "k_scale" in cache:
+        return (_dequantize_kv(cache["k"], cache["k_scale"], dtype),
+                _dequantize_kv(cache["v"], cache["v_scale"], dtype))
+    return cache["k"], cache["v"]
 
 
 def _page_translate(ctx: Ctx, b: int, s: int, page_size: int):
@@ -184,6 +247,9 @@ def _write_kv(cache: Params, ctx: Ctx, **new: torch.Tensor) -> None:
     b, s = first.shape[:2]
     ln = ctx.cache_len
     name0 = next(iter(new))
+    if "pos" in cache:
+        _write_ring(cache, ctx, new)
+        return
     if ctx.paged:
         # rows own disjoint pages, so index pairs never collide across live
         # rows (vacant rows all land on the trash page)
@@ -213,6 +279,49 @@ def _write_kv(cache: Params, ctx: Ctx, **new: torch.Tensor) -> None:
     idx = start + torch.arange(s, device=first.device)
     for name, x in new.items():
         cache[name].index_copy_(1, idx, x)
+
+
+def _write_ring(cache: Params, ctx: Ctx, new: dict) -> None:
+    """Ring write, per row: the last min(S, W) new tokens go to slots
+    position % W, and the slot->position map ``pos`` follows.  Rows of a
+    ragged batch sit at different positions, so offsets are (B, n)."""
+    first = next(iter(new.values()))
+    b, s = first.shape[:2]
+    w = cache["pos"].shape[1]
+    n = min(s, w)                      # only the last w tokens can survive
+    ln = ctx.cache_len
+    ln_b = ln[:, None] if ctx.ragged else ln.reshape(1, 1).expand(b, 1)
+    pos_val = ln_b + (s - n) + torch.arange(n, dtype=torch.int32,
+                                            device=ln.device)[None, :]
+    idx = (pos_val % w).long()         # (B, n), distinct within a row
+    rows = torch.arange(b, device=ln.device)[:, None].expand(b, n)
+    for name, x in new.items():
+        cache[name][rows, idx] = x[:, s - n:]
+    cache["pos"][rows, idx] = pos_val
+
+
+def _cross_attention(p: Params, cfg: ModelConfig, xn: torch.Tensor,
+                     ctx: Ctx, cache: Optional[Params]) -> torch.Tensor:
+    """Decoder -> encoder attention, no rope and no mask.  Prefill (and
+    training) project the encoder output, writing ``xk``/``xv`` into
+    ``cache``; decode reads them back."""
+    nq, nkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    b, s, _ = xn.shape
+    q = _split_heads(xn @ p["wq"], nq, dh).reshape(b, s, nkv, nq // nkv, dh)
+    if ctx.mode in ("train", "prefill") and ctx.enc_out is not None:
+        xk = _split_heads(ctx.enc_out @ p["wk"], nkv, dh)
+        xv = _split_heads(ctx.enc_out @ p["wv"], nkv, dh)
+        if cache is not None:
+            cache["xk"].copy_(xk)
+            cache["xv"].copy_(xv)
+    else:
+        xk, xv = cache["xk"], cache["xv"]
+    t = xk.shape[1]
+    # position 0 everywhere: the causal bias never masks
+    zq = torch.zeros((b, s), dtype=torch.int32, device=xn.device)
+    zk = torch.zeros((b, t), dtype=torch.int32, device=xn.device)
+    out = attention_any(q, xk, xv, zq, zk)
+    return out.reshape(b, s, nq * dh) @ p["wo"]
 
 
 def _mla_attention(p: Params, cfg: ModelConfig, xn: torch.Tensor, ctx: Ctx,
@@ -257,10 +366,20 @@ def block_apply(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
     """One block -> (x, aux loss): the MoE router's load-balance term, a
     float32 scalar, or 0.0 for the other kinds.  Its ``cache`` (if given)
     is written in place."""
-    if kind in ("attn", "shared_attn"):
+    if kind in ("attn", "swa", "shared_attn"):
+        window = cfg.sliding_window if kind == "swa" else None
+        x = x + _self_attention(p["attn"], cfg,
+                                rmsnorm(p["norm1"], x, cfg.rms_eps), ctx,
+                                cache, window)
+        return x + mlp_apply(p["mlp"],
+                             rmsnorm(p["norm2"], x, cfg.rms_eps)), 0.0
+    if kind == "xattn":
         x = x + _self_attention(p["attn"], cfg,
                                 rmsnorm(p["norm1"], x, cfg.rms_eps), ctx,
                                 cache)
+        x = x + _cross_attention(p["xattn"], cfg,
+                                 rmsnorm(p["norm_x"], x, cfg.rms_eps), ctx,
+                                 cache)
         return x + mlp_apply(p["mlp"],
                              rmsnorm(p["norm2"], x, cfg.rms_eps)), 0.0
     if kind == "mla":
@@ -290,8 +409,7 @@ def block_apply(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
             cache["conv"].copy_(new_conv)
             cache["ssm"].copy_(new_ssm)
         return x + y, 0.0
-    raise NotImplementedError(
-        f"block kind {kind!r} is not ported to repro_torch yet")
+    raise ValueError(kind)
 
 
 def stack_apply(params: Params, cfg: ModelConfig, x: torch.Tensor, ctx: Ctx,

@@ -78,8 +78,10 @@ def init_state(params, cfg: AdamWConfig = None) -> Dict[str, Any]:
 
 def _decayed(path, p: torch.Tensor) -> bool:
     """A matrix in the JAX package's layout, where ``stack/group`` leaves
-    carry a leading ``reps`` axis."""
-    return p.dim() + (tuple(path[:2]) == ("stack", "group")) >= 2
+    carry a leading ``reps`` axis and ``encoder/blocks`` leaves a layer
+    axis."""
+    stacked = tuple(path[:2]) in (("stack", "group"), ("encoder", "blocks"))
+    return p.dim() + stacked >= 2
 
 
 @torch.no_grad()

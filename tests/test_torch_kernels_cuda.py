@@ -357,6 +357,132 @@ def test_paged_decode_kernel_route_matches_plain_route(cuda_device):
     assert attn_kernel.decode_attention_cuda.launches == before + 3 * 2
 
 
+# #1 contiguous at the widths of the new paths: whisper-tiny's decoder
+# self-attention (6 KV heads of 64, Qh = 1) and gemma3-27b's global layers
+# (16 KV heads of 128, Qh = 2), over ragged rows of a dense stripe
+CONTIG_SHAPES = {"whisper": dict(g=6, qh=1, d=64),
+                 "gemma3": dict(g=16, qh=2, d=128)}
+
+
+def _contig_case(shape, s_win, t, lens, device, seed=0):
+    """q (B,S,G,Qh,D), a clean k/v stripe (B,T,G,D), the same stripe with
+    garbage (K 1e3, V -1e3, as ``paged_case`` puts in foreign pages) at
+    every position no window row may read (t >= len + S - 1), and lengths
+    (B,), on the card in float32."""
+    c = CONTIG_SHAPES[shape]
+    rng = np.random.default_rng(seed)
+    b = len(lens)
+    q = rng.normal(size=(b, s_win, c["g"], c["qh"], c["d"]))
+    k = rng.normal(size=(b, t, c["g"], c["d"]))
+    v = rng.normal(size=(b, t, c["g"], c["d"]))
+    kn, vn = k.copy(), v.copy()
+    for i, ln in enumerate(lens):
+        kn[i, ln + s_win - 1:] = 1e3
+        vn[i, ln + s_win - 1:] = -1e3
+    return [torch.from_numpy(np.asarray(x, np.float32)).to(device)
+            for x in (q, k, v, kn, vn)] + [
+        torch.tensor(lens, dtype=torch.int32, device=device)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("s_win", [1, 5])
+@pytest.mark.parametrize("shape", sorted(CONTIG_SHAPES))
+def test_decode_attention_contiguous_at_new_widths(cuda_device, shape,
+                                                   s_win, dtype, tol):
+    """#1 over a dense stripe at whisper's and gemma3's head widths: ragged
+    rows (one empty, one ending on a split edge), the garbage past every
+    frontier never weighed, two calls bitwise equal."""
+    q, k, v, kn, vn, ln = _contig_case(shape, s_win, 1040,
+                                       [0, 1, 517, 1024], cuda_device)
+    q, k, v, kn, vn = (x.to(dtype) for x in (q, k, v, kn, vn))
+    before = attn_kernel.decode_attention_cuda.launches
+    got = decode_attention(q, kn, vn, ln)
+    assert attn_kernel.decode_attention_cuda.launches == before + 1
+    want = decode_attention_ref(q, k, v, ln)
+    rtol = 0 if dtype == torch.float32 else tol
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=rtol)
+    assert torch.equal(got, decode_attention(q, kn, vn, ln))
+    if s_win == 1:
+        assert torch.all(got[0] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape", sorted(CONTIG_SHAPES))
+def test_decode_attention_on_dequantized_int8(cuda_device, shape, dtype,
+                                              tol):
+    """An int8 KV cache's read: K/V quantized per (token, head) as the
+    model writes them, dequantized whole in plain code, then #1 against
+    the plain version on the same dequantized operands."""
+    from repro_torch.models.transformer import (_dequantize_kv,
+                                                _quantize_kv)
+    q, k, v, _, _, ln = _contig_case(shape, 3, 600, [5, 0, 300, 597],
+                                     cuda_device, seed=4)
+    (kq, ks), (vq, vs) = _quantize_kv(k), _quantize_kv(v)
+    assert kq.dtype == torch.int8 and ks.dtype == torch.bfloat16
+    kd, vd = _dequantize_kv(kq, ks, dtype), _dequantize_kv(vq, vs, dtype)
+    q = q.to(dtype)
+    before = attn_kernel.decode_attention_cuda.launches
+    got = decode_attention(q, kd, vd, ln)
+    assert attn_kernel.decode_attention_cuda.launches == before + 1
+    rtol = 0 if dtype == torch.float32 else tol
+    torch.testing.assert_close(
+        got.float(), decode_attention_ref(q, kd, vd, ln).float(), atol=tol,
+        rtol=rtol)
+
+
+ARCH_CASES = {
+    "swa+attn": dict(group=("swa", "attn"), sliding_window=8),
+    "xattn": dict(family="audio", group=("xattn",), is_encoder_decoder=True,
+                  n_encoder_layers=2, encoder_seq_len=12),
+    "int8": dict(kv_cache_dtype="int8"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(ARCH_CASES))
+def test_new_paths_kernel_route_matches_plain_route(cuda_device, case):
+    """A small float32 model of each new path decodes ragged dense rows
+    through #1 and through the plain path: the logits agree, and #1
+    launches once a full-attention layer a step (a ring layer never)."""
+    kw = dict(dict(arch_id="tp", family="dense", n_layers=2, d_model=64,
+                   n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=128,
+                   dtype="float32", max_seq_len=64), **ARCH_CASES[case])
+    cfg = ModelConfig(**kw)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(0)
+    plain = build_model(cfg)
+    params = plain.init(gen, device=cuda_device)
+    kern = build_model(dataclasses.replace(cfg, use_pallas_kernels=True))
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, 128, (2, 24))).to(cuda_device)
+    inp = {"tokens": toks[:, :6]}
+    if cfg.is_encoder_decoder:
+        inp["frames"] = torch.from_numpy(rng.normal(size=(
+            2, 12, 64)).astype(np.float32)).to(cuda_device)
+    caches = []
+    for m in (plain, kern):
+        c = m.init_cache(2, 32, device=cuda_device)
+        _, c = m.prefill(params, inp, c)
+        c["len"] = torch.tensor([6, 4], dtype=torch.int32,
+                                device=cuda_device)
+        caches.append(c)
+    before = attn_kernel.decode_attention_cuda.launches
+    i, steps = 6, 0
+    for width in (1, 3, 1, 1, 1, 1, 1, 1, 1, 1):
+        a, caches[0] = plain.decode_step(params, caches[0],
+                                         toks[:, i:i + width])
+        b, caches[1] = kern.decode_step(params, caches[1],
+                                        toks[:, i:i + width])
+        torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-4)
+        i, steps = i + width, steps + 1
+    full = sum(k != "swa" for k in cfg.group) * cfg.layer_program[1]
+    assert attn_kernel.decode_attention_cuda.launches == before + steps * full
+
+
 def _mamba_case(device, b, s, d, n):
     return [torch.from_numpy(x).to(device)
             for x in mamba_inputs(b, s, d, n, seed=s + d)]

@@ -147,7 +147,12 @@ def test_entry_points_default_to_the_card():
 
 
 def test_unported_block_kinds_raise():
-    cfg = TModelConfig(arch_id="tp-swa", family="dense", group=("swa",),
-                       sliding_window=8, **BASE)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_build_model(cfg)
+    """A block kind the JAX package does not know either is refused at
+    ``build_model`` (every kind it knows builds in the port: the
+    sliding-window, encoder-decoder and int8 paths are held to the
+    reference in ``tests/test_torch_archs.py``)."""
+    kw = dict(arch_id="tp-conv", family="dense", group=("conv",), **BASE)
+    with pytest.raises(ValueError, match="unknown block kinds"):
+        t_build_model(TModelConfig(**kw))
+    with pytest.raises(ValueError, match="conv"):
+        build_model(ModelConfig(**kw)).init(jax.random.PRNGKey(0))
