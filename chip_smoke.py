@@ -188,7 +188,17 @@ non-zero without the final result line):
     as in phase 5; phase 7 adds #1 on a mid-run call of whisper's,
     gemma3's and the int8 run's (``whisper``, ``gemma3``, ``int8``) and #2
     on a mid-run tick of each bf16 run (``gemma3``, ``llava``,
-    ``whisper``).
+    ``whisper``);
+12. scale-out and the serve flags: (a) ``repro_torch.launch.train --mesh
+    1x1`` (an NCCL world of one rank over a file store, the params and
+    AdamW moments DTensors on a 1 x 1 ``DeviceMesh``, the same program the
+    CPU tests run on 2 x 2 gloo meshes) on phase 10 (a)'s flags for 2
+    steps: its losses and grad norms held to phase 10 (a)'s first two
+    (relative 1e-4), its step times beside the unsharded ones; (b) the
+    serve CLI in process at full width, ``--kernels --dtype float32 --k 2
+    --analyze warn --print-ids``, with and without ``--opportunistic``:
+    ``IDS`` lines equal, the ``[analysis]`` lines and #1/#2 launches of
+    each printed.  No run here spans more than one card.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -3421,6 +3431,7 @@ def _train_full_width(torch, card, ckpt):
                       "--lr", str(TRAIN_LR), "--save", str(ckpt)])
     peak = torch.cuda.max_memory_allocated() - base
     losses, cfg = out["losses"], out["cfg"]
+    grad_norms, step_s = out["grad_norms"], out["step_s"]
     if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
         raise AssertionError(f"(a) losses not finite and falling: {losses}")
     steps = sorted(out["step_s"][TRAIN_WARMUP:])
@@ -3448,7 +3459,7 @@ def _train_full_width(torch, card, ckpt):
     torch.cuda.empty_cache()
     return {"losses": losses, "step_ms": med_ms, "bound_ms": bound,
             "tokens_per_s": tokens / (med_ms / 1e3), "peak_gb": peak / 1e9,
-            "n_params": n}
+            "n_params": n, "grad_norms": grad_norms, "step_s": step_s}
 
 
 def _serve_checkpoint(torch, card, ckpt):
@@ -3805,6 +3816,129 @@ def phase_training(torch, card):
     d = _flash_and_guards(torch, card)
     log(f"[train] (d) {time.perf_counter() - t0:.1f}s")
     return {"a": a, "c": c, "d": d}
+
+
+# -- phase 12: scale-out and the serve flags ------------------------------------
+
+MESH_STEPS = 2          # the mesh trainer's steps, held to phase 10 (a)'s
+MESH_TOL = 1e-4         # relative, as the CPU tests' step parity
+# the serve CLI's flags of phase 12 (b), with and without --opportunistic
+FLAG_ARGV = ["--arch", TRAIN_ARCH, "--no-smoke", "--kernels", "--dtype",
+             "float32", "--k", "2", "--analyze", "warn", "--print-ids",
+             "--prompts", str(N_REQUESTS), "--slots", str(N_REQUESTS),
+             "--max-tokens", str(MAX_TOKENS)]
+
+
+def _mesh_train(torch, card, plain):
+    """(a): the trainer CLI's ``--mesh 1x1`` (an NCCL world of one rank
+    over a file store, the params and moments DTensors on a 1 x 1
+    DeviceMesh) at stablelm-1.6b's published width in float32, 2 steps on
+    phase 10 (a)'s flags; its first two steps' losses and grad norms (the
+    schedule reaches step 2's learning rate only after them) held to phase
+    10 (a)'s."""
+    from repro_torch.launch import train
+    out = train.main(["--arch", TRAIN_ARCH, "--dtype", "float32",
+                      "--steps", str(MESH_STEPS), "--batch", str(TRAIN_BATCH),
+                      "--seq", str(TRAIN_SEQ), "--lr", str(TRAIN_LR),
+                      "--mesh", "1x1"])
+    import torch.distributed as dist
+    if dist.is_initialized():
+        raise AssertionError("(a) the mesh trainer left its world up")
+    pairs = {"loss": (out["losses"], plain["losses"][:MESH_STEPS]),
+             "grad norm": (out["grad_norms"],
+                           plain["grad_norms"][:MESH_STEPS])}
+    diffs = {}
+    for what, (got, want) in pairs.items():
+        if not all(math.isfinite(x) for x in got):
+            raise AssertionError(f"(a) mesh {what}es not finite: {got}")
+        rel = max(abs(g - w) / max(abs(w), 1e-12) for g, w in zip(got, want))
+        if rel > MESH_TOL:
+            raise AssertionError(f"(a) mesh {what}es {got} against the "
+                                 f"unsharded {want}: rel {rel:.3g}")
+        diffs[what] = (got, want, rel)
+    for what, (got, want, rel) in diffs.items():
+        log(f"[scaleout] (a) {what} on the 1x1 mesh {got} against phase 10 "
+            f"(a)'s unsharded {want}: largest relative difference "
+            f"{rel:.3g} (limit {MESH_TOL:g})")
+    ms = [x * 1e3 for x in out["step_s"]]
+    plain_ms = [x * 1e3 for x in plain["step_s"][:MESH_STEPS]]
+    log(f"[scaleout] (a) step times on the 1x1 mesh "
+        f"{', '.join(f'{x:.1f}' for x in ms)} ms (the first builds "
+        f"DTensor's sharding plans) against the unsharded "
+        f"{', '.join(f'{x:.1f}' for x in plain_ms)} ms (phase 10 (a)'s "
+        f"median {plain['step_ms']:.1f} ms) at batch {TRAIN_BATCH} x seq "
+        f"{TRAIN_SEQ}, float32; on {card}")
+    torch.cuda.empty_cache()
+    return {"losses": out["losses"], "grad_norms": out["grad_norms"],
+            "step_ms": ms, "plain_step_ms": plain_ms,
+            "rel": {k: v[2] for k, v in diffs.items()}}
+
+
+def _serve_flags(torch, card):
+    """(b): the serve CLI in process at full width through the kernels with
+    ``--k 2 --analyze warn`` and ``--opportunistic``, against the same run
+    without it: equal ids, the [analysis] lines, #1/#2 launches of each."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve
+    runs = {}
+    for name, extra in (("opportunistic", ["--opportunistic"]),
+                        ("masked", [])):
+        buf = io.StringIO()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            serve.main(FLAG_ARGV + extra)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        text = buf.getvalue()
+        ids = [ln for ln in text.splitlines() if ln.startswith("IDS ")]
+        analysis = [ln for ln in text.splitlines()
+                    if ln.startswith("[analysis] ")]
+        if len(ids) != N_REQUESTS or not analysis:
+            raise AssertionError(f"(b) {name}: {len(ids)} IDS lines, "
+                                 f"{len(analysis)} [analysis] lines: "
+                                 f"{text[-2000:]}")
+        runs[name] = (ids, analysis, counts, time.perf_counter() - t0,
+                      [ln.strip() for ln in text.splitlines()
+                       if "out[" in ln])
+    # the masked run selects through #2 (one launch a tick for the batch;
+    # an opportunistic row masks only where its unconstrained choice is
+    # illegal, so that run may launch none), and decodes through #1
+    counts, outs = runs["masked"][2], runs["masked"][4]
+    n_tok = sum(len(x.split()) - 2 for x in runs["masked"][0])
+    if not counts["masked_argmax_packed"] or (
+            n_tok > N_REQUESTS and not counts["decode_attention"]):
+        raise AssertionError(f"(b) masked run: {n_tok} tokens but launches "
+                             f"{counts}: {outs}")
+    if runs["opportunistic"][0] != runs["masked"][0]:
+        raise AssertionError(f"(b) ids differ: {runs['opportunistic'][0]} "
+                             f"against {runs['masked'][0]}")
+    for line in runs["masked"][1]:
+        log(f"[scaleout] (b) {line}")
+    for name, (ids, _, counts, sec, outs) in runs.items():
+        log(f"[scaleout] (b) serve {' '.join(FLAG_ARGV)}"
+            f"{' --opportunistic' if name == 'opportunistic' else ''}: "
+            f"{sum(len(x.split()) - 2 for x in ids)} tokens, launches "
+            f"decode_attention {counts['decode_attention']}, "
+            f"masked_argmax_packed {counts['masked_argmax_packed']}; "
+            f"{sec:.1f}s; on {card}; first: {outs[0][:120] if outs else ''}")
+    log("[scaleout] (b) ids with --opportunistic equal the ids without it")
+    torch.cuda.empty_cache()
+    return {name: run[2] for name, run in runs.items()}
+
+
+def phase_scaleout(torch, card, train_out):
+    """Phase 12: (a) the trainer's mesh path on the card, (b) the serve
+    CLI's --k, --opportunistic and --analyze."""
+    t0 = time.perf_counter()
+    a = _mesh_train(torch, card, train_out["a"])
+    log(f"[scaleout] (a) {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    b = _serve_flags(torch, card)
+    log(f"[scaleout] (b) {time.perf_counter() - t0:.1f}s")
+    return {"a": a, "b": b}
 
 
 # -- phase 11 -------------------------------------------------------------------
@@ -4225,7 +4359,9 @@ def main() -> int:
                         attn_long, split_long, argmax_long)
         timed("faults and durability", phase_faults, torch, card, shared)
         prefix = timed("prefix cache", phase_prefix, torch, card, shared)
-        timed("training", phase_training, torch, card)
+        train_out = timed("training", phase_training, torch, card)
+        timed("scale-out and serve flags", phase_scaleout, torch, card,
+              train_out)
         for k in kernels:
             if k["name"] == "decode_attention":
                 k["prefix"] = prefix

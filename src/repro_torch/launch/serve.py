@@ -51,6 +51,12 @@ config it was trained at (``meta.json``'s ``arch``):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
       --smoke --checkpoint $TMPDIR/ck --kernels
 
+``--k`` bounds DOMINO's lookahead (-1, the default, is unbounded),
+``--opportunistic`` builds a row's mask only where its unconstrained choice
+is illegal (the same greedy output), and ``--analyze warn|strict`` analyzes
+each grammar as it is registered, prints an ``[analysis]`` line a grammar,
+and under ``strict`` refuses a grammar with traps or alignment gaps.
+
 ``--prefix-cache`` (paged KV only) serves through the scheduler's radix
 prefix cache: an admission whose prompt shares whole pages with an earlier
 one maps them and prefills only its tail, and a restore with the flag
@@ -72,6 +78,11 @@ def parse_args(argv=None):
                          "prompts; 'none' entries serve unconstrained rows")
     ap.add_argument("--mode", default="domino",
                     choices=["unconstrained", "domino", "naive", "online"])
+    ap.add_argument("--k", type=int, default=-1,
+                    help="DOMINO lookahead (-1 = infinity)")
+    ap.add_argument("--opportunistic", action="store_true",
+                    help="opportunistic masking: a row's mask is built "
+                         "only where its unconstrained choice is illegal")
     ap.add_argument("--speculative", action="store_true",
                     help="speculative decoding (paper section 3.6): "
                          "count-model proposals verified in one forward")
@@ -140,6 +151,11 @@ def parse_args(argv=None):
     ap.add_argument("--sync-n", type=int, default=8,
                     help="fused block length: decode steps committed on "
                          "the device between host syncs")
+    ap.add_argument("--analyze", default="off",
+                    choices=["off", "warn", "strict"],
+                    help="registration-time grammar analysis: 'warn' "
+                         "reports traps and alignment gaps, 'strict' "
+                         "refuses to serve a grammar with any")
     ap.add_argument("--print-ids", action="store_true",
                     help="print one 'IDS <rid> <token ids...>' line a "
                          "result")
@@ -215,10 +231,17 @@ def build_engine(args):
         params = model.init(gen, device=dev)
     device_tables = args.device_tables or args.device_loop
     engine = ServingEngine(model, params, tok, max_len=1024,
+                           analysis_policy=args.analyze,
                            device_tables=device_tables, device=dev)
     for name, g in loaded.items():
-        engine.register_grammar(name, g)
+        engine.register_grammar(name, g)   # analyzed per --analyze
     engine.precompute()
+    for name, rep in engine.analysis_reports.items():
+        print(f"[analysis] {name}: "
+              f"{'OK' if rep.ok() else 'PROBLEMS'} "
+              f"({rep.closure.n_states} states, "
+              f"{'finite' if rep.closure.finite else 'open'}, "
+              f"{rep.analysis_time_s:.2f}s)")
     if device_tables:
         for name, tbl in engine.device_tables.items():
             print(f"[device-table] {name}: {tbl.n_states} states, "
@@ -234,7 +257,9 @@ def build_engine(args):
                           deadline_s=args.deadline_s)
     specs = [ConstraintSpec() if name == "none"
              or args.mode == "unconstrained"
-             else ConstraintSpec(grammar=name, mode=args.mode)
+             else ConstraintSpec(grammar=name, mode=args.mode,
+                                 k=None if args.k < 0 else args.k,
+                                 opportunistic=args.opportunistic)
              for name in gnames]
     base_prompts = ["A person encoded as a JSON object: ", "Results: ",
                     "Config: ", "Data record: "]

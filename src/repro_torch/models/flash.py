@@ -155,7 +155,15 @@ def naive_attention(q, k, v, q_pos, k_pos, window=None, k_valid=None):
 
 def attention_any(q, k, v, q_pos, k_pos, window=None, k_valid=None,
                   blocked_threshold: int = 1024):
-    """Dispatch: blocked for long sequences, naive for short/decode."""
+    """Dispatch: blocked for long sequences, naive for short/decode.  On
+    DTensors (a mesh's shards) each rank attends its own rows and KV
+    groups (``act_sharding.local_attention``)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(q, DTensor) or isinstance(k, DTensor):
+        from repro_torch.models.act_sharding import local_attention
+        return local_attention(
+            lambda *a: attention_any(*a, blocked_threshold=blocked_threshold),
+            q, k, v, q_pos, k_pos, window, k_valid)
     s, t = q.shape[1], k.shape[1]
     if s * t >= blocked_threshold * blocked_threshold:
         return blocked_attention(q, k, v, q_pos, k_pos, window, k_valid)

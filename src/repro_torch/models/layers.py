@@ -13,9 +13,12 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.models.act_sharding import (constrain_batch, local_rows,
+                                             unshard)
 from repro_torch.models.flash import NEG, _bias_tile, attention_any
 
 Params = Dict[str, object]
@@ -81,7 +84,21 @@ def attention_init(gen, cfg: ModelConfig, device) -> Params:
 
 def _split_heads(x: torch.Tensor, n_heads: int, d_head: int) -> torch.Tensor:
     b, s, _ = x.shape
+    if isinstance(x, DTensor) and not _whole_heads(x, n_heads, -1):
+        # a shard would hold part of a head: gather the heads' dim first
+        x = unshard(x, -1)
     return x.reshape(b, s, n_heads, d_head)
+
+
+def _whole_heads(x: DTensor, n_heads: int, dim: int) -> bool:
+    """True iff every mesh dim that shards ``x``'s dim ``dim`` divides
+    ``n_heads``, so that splitting it into heads keeps each within one
+    shard."""
+    n = 1
+    for size, p in zip(x.device_mesh.mesh.shape, x.placements):
+        if p.is_shard() and p.dim % x.ndim == dim % x.ndim:
+            n *= size
+    return n_heads % n == 0
 
 
 def mlp_init(gen, d: int, f: int, dtype, device) -> Params:
@@ -93,8 +110,10 @@ def mlp_init(gen, d: int, f: int, dtype, device) -> Params:
 
 
 def mlp_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ params["w_gate"]) * (x @ params["w_up"])) \
-        @ params["w_down"]
+    """The gated MLP; under a mesh its row-parallel output is pinned to
+    the batch placement (``act_sharding.constrain_batch``)."""
+    return constrain_batch((F.silu(x @ params["w_gate"])
+                            * (x @ params["w_up"])) @ params["w_down"])
 
 
 # ---------------------------------------------------------------------------
@@ -174,7 +193,8 @@ def mla_apply(params: Params, cfg: ModelConfig, x: torch.Tensor,
     k_full = torch.cat(
         [k_nope, k_rope.expand(b, t, nq, m.qk_rope_head_dim)], dim=-1)
     out = attention_any(q_full, k_full, v, q_pos, k_pos, None, k_valid)
-    return out.reshape(b, s, nq * m.v_head_dim) @ params["wo"]
+    return constrain_batch(out.reshape(b, s, nq * m.v_head_dim)
+                           @ params["wo"])
 
 
 def mla_apply_absorbed(params: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -213,14 +233,27 @@ def mla_apply_absorbed(params: Params, cfg: ModelConfig, x: torch.Tensor,
             block_tables=block_tables)[:, :, 0]
         ctx_lat = ctx_lat.to(x.dtype)                           # (B,S,H,r)
     else:
-        scores = (torch.einsum("bshr,btr->bhst", q_lat, c_kv)
-                  + torch.einsum("bshd,btd->bhst", q_rope, k_rope[:, :, 0]))
-        scores = scores.to(torch.float32) * scale
-        bias = _bias_tile(q_pos, k_pos, None, k_valid)[:, :, 0]  # (B,1,S,T)
-        probs = torch.softmax(scores + bias, dim=-1).to(x.dtype)
-        ctx_lat = torch.einsum("bhst,btr->bshr", probs, c_kv)   # (B,S,H,r)
+        def read(q_lat, q_rope, c_kv, k_rope, q_pos, k_pos, k_valid):
+            scores = (torch.einsum("bshr,btr->bhst", q_lat, c_kv)
+                      + torch.einsum("bshd,btd->bhst", q_rope,
+                                     k_rope[:, :, 0]))
+            scores = scores.to(torch.float32) * scale
+            bias = _bias_tile(q_pos, k_pos, None, k_valid)[:, :, 0]
+            probs = torch.softmax(scores + bias, dim=-1).to(x.dtype)
+            return torch.einsum("bhst,btr->bshr", probs, c_kv)  # (B,S,H,r)
+
+        args = (q_lat, q_rope, c_kv, k_rope, q_pos, k_pos, k_valid)
+        if any(isinstance(a, DTensor) for a in args):
+            # each rank reads its own rows and heads of the latent
+            heads, rows = (0, 2), (0, None)
+            ctx_lat = local_rows(read, args, (
+                heads, heads, rows, rows, rows, rows,
+                None if k_valid is None else rows), heads, b, nq)
+        else:
+            ctx_lat = read(*args)
     out = torch.einsum("bshr,rhd->bshd", ctx_lat, w_uv)
-    return out.reshape(b, s, nq * m.v_head_dim) @ params["wo"]
+    return constrain_batch(out.reshape(b, s, nq * m.v_head_dim)
+                           @ params["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -329,4 +362,4 @@ def moe_apply(params: Params, cfg: ModelConfig,
         out = out + mlp_apply(params["shared"], xt_flat)
     if "dense" in params:
         out = out + mlp_apply(params["dense"], xt_flat)
-    return out.reshape(b, s, d), aux
+    return constrain_batch(out.reshape(b, s, d)), aux

@@ -26,11 +26,12 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import kvcache
+from repro_torch.models import act_sharding, kvcache
 from repro_torch.models.layers import (dense_init, rmsnorm, rmsnorm_init,
                                        torch_dtype)
 from repro_torch.models.transformer import (Ctx, block_apply, block_init,
@@ -81,17 +82,27 @@ class Model:
     # -- embedding / head -------------------------------------------------------
 
     def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-        return params["embed"][tokens]
+        if isinstance(params["embed"], DTensor):
+            return act_sharding.constrain_batch(
+                act_sharding.vocab_embed(params["embed"], tokens))
+        return act_sharding.constrain_batch(params["embed"][tokens])
 
     def _head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
-        x = rmsnorm(params["final_norm"], x, self.cfg.rms_eps)
+        x = act_sharding.constrain_batch(
+            rmsnorm(params["final_norm"], x, self.cfg.rms_eps))
         if self.cfg.tie_embeddings:
             logits = x @ params["embed"].T
         else:
             logits = x @ params["lm_head"]
         if self.padded_vocab != self.cfg.vocab_size:
-            logits[..., self.cfg.vocab_size:] = NEG
-        return logits
+            if isinstance(logits, DTensor):
+                # no sharding rule fills a slice of a vocab-sharded tensor
+                pad = torch.arange(self.padded_vocab, device=x.device) \
+                    >= self.cfg.vocab_size
+                logits = torch.where(pad, NEG, logits)
+            else:
+                logits[..., self.cfg.vocab_size:] = NEG
+        return act_sharding.constrain_logits(logits)
 
     # -- encoder (whisper): bidirectional stack over stub frame embeddings ---
 
@@ -266,9 +277,12 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     ``logsumexp`` and a gather where the JAX package contracts a one-hot
     (the same sum)."""
     logits = logits.to(torch.float32)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1,
-                        torch.clamp(labels, min=0).long()[..., None])[..., 0]
+    if isinstance(logits, DTensor):
+        logz, gold = act_sharding.vocab_parallel_nll_terms(logits, labels)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, torch.clamp(
+            labels, min=0).long()[..., None])[..., 0]
     mask = (labels >= 0).to(torch.float32)
     return ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 

@@ -27,10 +27,12 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.mamba_scan.ops import mamba_scan
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
+from repro_torch.models.act_sharding import constrain_batch, local_rows
 from repro_torch.models.layers import (dense_init, rmsnorm, rmsnorm_init,
                                        torch_dtype)
 
@@ -162,7 +164,7 @@ def mamba1_apply(params: Params, cfg: ModelConfig, x: torch.Tensor,
         y = torch.einsum("bsdn,bsn->bsd", h_all, c_in)
     y = y + params["D"] * xs32
     y = (y.to(x.dtype) * F.silu(z)) @ params["out_proj"]
-    return y, (new_conv, h_last)
+    return constrain_batch(y), (new_conv, h_last)
 
 
 # ---------------------------------------------------------------------------
@@ -270,9 +272,16 @@ def mamba2_apply(params: Params, cfg: ModelConfig, x: torch.Tensor,
                              log_decay.contiguous(), dt.contiguous(),
                              ssm_state.contiguous(),
                              chunk=min(CHUNK, slen))
+    elif any(isinstance(t, DTensor) for t in (xs, ssm_state)):
+        # each rank scans its own rows and heads
+        heads, rows = (0, 2), (0, None)
+        y, h_last = local_rows(
+            _ssd_chunked, (xs, b_in, c_in, log_decay, dt, ssm_state),
+            (heads, rows, rows, heads, heads, (0, 1)), (heads, (0, 1)),
+            bsz, nh)
     else:
         y, h_last = _ssd_chunked(xs, b_in, c_in, log_decay, dt, ssm_state)
     y = y + params["D"][:, None] * xs
     y = y.reshape(bsz, slen, d_in).to(x.dtype)
     y = rmsnorm(params["norm"], y * F.silu(z), cfg.rms_eps)
-    return y @ params["out_proj"], (new_conv, h_last)
+    return constrain_batch(y @ params["out_proj"]), (new_conv, h_last)

@@ -28,15 +28,17 @@ import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.decode_attention.ref import gather_pages
-from repro_torch.models import ssm
+from repro_torch.models import act_sharding, ssm
 from repro_torch.models.flash import attention_any
 from repro_torch.models.kvcache import check_ported
-from repro_torch.models.layers import (_split_heads, attention_init,
+from repro_torch.models.layers import (_split_heads, _whole_heads,
+                                       attention_init,
                                        mla_apply, mla_apply_absorbed,
                                        mla_compress, mla_init, mlp_apply,
                                        mlp_init, moe_apply, moe_init, rmsnorm,
@@ -148,6 +150,9 @@ def _self_attention(p: Params, cfg: ModelConfig, xn: torch.Tensor, ctx: Ctx,
     k_new = rope(_split_heads(xn @ p["wk"], nkv, dh), ctx.q_pos,
                  cfg.rope_theta)
     v_new = _split_heads(xn @ p["wv"], nkv, dh)
+    if isinstance(q, DTensor) and not _whole_heads(q, nkv, 2):
+        # a shard would split a KV group's query heads: gather them first
+        q = act_sharding.unshard(q, 2)
     qg = q.reshape(b, s, nkv, nq // nkv, dh)
 
     if cache is None or ctx.mode == "prefill":
@@ -185,7 +190,8 @@ def _self_attention(p: Params, cfg: ModelConfig, xn: torch.Tensor, ctx: Ctx,
                    else ctx.cache_len) + s
             out = attention_any(qg, k_all, v_all, ctx.q_pos, k_pos, None,
                                 k_pos < lim)
-    return out.reshape(b, s, nq * dh) @ p["wo"]
+    return act_sharding.constrain_batch(out.reshape(b, s, nq * dh)
+                                        @ p["wo"])
 
 
 def _quantize_kv(x: torch.Tensor):
@@ -278,7 +284,10 @@ def _write_kv(cache: Params, ctx: Ctx, **new: torch.Tensor) -> None:
     start = torch.clamp(ln.long(), 0, t - s)
     idx = start + torch.arange(s, device=first.device)
     for name, x in new.items():
-        cache[name].index_copy_(1, idx, x)
+        if isinstance(cache[name], DTensor):
+            act_sharding.write_slots(cache[name], x, start)
+        else:
+            cache[name].index_copy_(1, idx, x)
 
 
 def _write_ring(cache: Params, ctx: Ctx, new: dict) -> None:
@@ -293,6 +302,13 @@ def _write_ring(cache: Params, ctx: Ctx, new: dict) -> None:
     ln_b = ln[:, None] if ctx.ragged else ln.reshape(1, 1).expand(b, 1)
     pos_val = ln_b + (s - n) + torch.arange(n, dtype=torch.int32,
                                             device=ln.device)[None, :]
+    if isinstance(cache["pos"], DTensor):
+        for name, x in new.items():
+            act_sharding.write_slots(cache[name], x[:, s - n:],
+                                     pos_val[:, :1], wrap=w)
+        act_sharding.write_slots(cache["pos"], pos_val, pos_val[:, :1],
+                                 wrap=w)
+        return
     idx = (pos_val % w).long()         # (B, n), distinct within a row
     rows = torch.arange(b, device=ln.device)[:, None].expand(b, n)
     for name, x in new.items():
@@ -321,7 +337,8 @@ def _cross_attention(p: Params, cfg: ModelConfig, xn: torch.Tensor,
     zq = torch.zeros((b, s), dtype=torch.int32, device=xn.device)
     zk = torch.zeros((b, t), dtype=torch.int32, device=xn.device)
     out = attention_any(q, xk, xv, zq, zk)
-    return out.reshape(b, s, nq * dh) @ p["wo"]
+    return act_sharding.constrain_batch(out.reshape(b, s, nq * dh)
+                                        @ p["wo"])
 
 
 def _mla_attention(p: Params, cfg: ModelConfig, xn: torch.Tensor, ctx: Ctx,
@@ -441,6 +458,10 @@ def stack_apply(params: Params, cfg: ModelConfig, x: torch.Tensor, ctx: Ctx,
 
     remat = ctx.mode == "train" and torch.is_grad_enabled()
     for r in range(reps):
+        # every repetition starts from the same placement under a mesh (the
+        # identity on plain tensors), so each issues the same collectives;
+        # outside the checkpointed body, where it costs no saved activation
+        x = act_sharding.constrain_batch(x)
         caches = [None] * len(group)
         if cache is not None:
             caches = [{name: leaf[r]

@@ -1339,7 +1339,9 @@ class ContinuousBatchingScheduler:
             try:
                 if sess.opportunistic and sess.temperature <= 0.0:
                     t0 = time.perf_counter()
-                    ok = ch.check_token(int(raw[slot]))
+                    # a head wider than the tokenizer (a published config's)
+                    # can choose a column that is no token: not legal
+                    ok = raw[slot] < v and ch.check_token(int(raw[slot]))
                     sess.mask_time += time.perf_counter() - t0
                     if ok:
                         self._opp_intervened[slot] = False

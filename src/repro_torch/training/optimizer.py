@@ -69,8 +69,9 @@ def schedule_fn(cfg: AdamWConfig) -> Callable[[torch.Tensor], torch.Tensor]:
 
 def init_state(params, cfg: AdamWConfig = None) -> Dict[str, Any]:
     dt = DTYPES[cfg.state_dtype] if cfg is not None else F32
-    zeros = lambda: tree_map(
-        lambda p: torch.zeros(p.shape, dtype=dt, device=p.device), params)
+    # zeros_like keeps a DTensor's mesh and placements: moments shard
+    # like their params
+    zeros = lambda: tree_map(lambda p: torch.zeros_like(p, dtype=dt), params)
     first = next(v for _, v in tree_items(params))
     return {"m": zeros(), "v": zeros(),
             "step": torch.zeros((), dtype=torch.int32, device=first.device)}
@@ -82,6 +83,17 @@ def _decayed(path, p: torch.Tensor) -> bool:
     axis."""
     stacked = tuple(path[:2]) in (("stack", "group"), ("encoder", "blocks"))
     return p.dim() + stacked >= 2
+
+
+def _placed_like(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``x`` with ``like``'s DTensor placements: an update of a shard (whose
+    gradient arrives as a partial sum, or the moments' elementwise ops)
+    may come out placed otherwise, and the next step must find every
+    param and moment sharded by its spec again.  Plain tensors pass."""
+    if getattr(like, "placements", None) is None \
+            or tuple(x.placements) == tuple(like.placements):
+        return x
+    return x.redistribute(like.device_mesh, like.placements)
 
 
 @torch.no_grad()
@@ -114,8 +126,9 @@ def apply_updates(params, grads, state, cfg: AdamWConfig):
         delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
         if _decayed(path, p):  # matrices only (norms/bias exempt)
             delta = delta + cfg.weight_decay * p.to(F32)
-        new_p[path] = (p.to(F32) - lr * delta).to(p.dtype)
-        new_m[path], new_v[path] = m.to(sdt), v.to(sdt)
+        new_p[path] = _placed_like((p.to(F32) - lr * delta).to(p.dtype), p)
+        new_m[path] = _placed_like(m.to(sdt), flat_m[path])
+        new_v[path] = _placed_like(v.to(sdt), flat_v[path])
     rebuild = lambda flat: tree_map(lambda _, path: flat[path], params,
                                     with_path=True)
     return rebuild(new_p), {"m": rebuild(new_m), "v": rebuild(new_v),

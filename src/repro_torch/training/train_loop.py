@@ -14,6 +14,7 @@ from typing import Any, Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.models.convert import tree_items, tree_map
 from repro_torch.models.model import Model, cross_entropy
@@ -30,11 +31,10 @@ def detached(params):
     return tree_map(lambda p: p.detach(), params)
 
 
-def make_train_step(model: Model, ocfg: opt.AdamWConfig):
-    """step(params, state, batch) -> (new params, new state, metrics);
-    ``batch`` maps names to tensors on the params' device.  A batch with
-    ``labels`` (prompt-masked task rows) scores ``labels`` against the
-    logits of ``tokens[:, :-1]``; otherwise ``model.loss``."""
+def make_loss_fn(model: Model):
+    """loss_fn(params, batch) -> (loss, metrics).  A batch with ``labels``
+    (prompt-masked task rows) scores ``labels`` against the logits of
+    ``tokens[:, :-1]``; otherwise ``model.loss``."""
     def loss_fn(params, batch):
         if "labels" in batch:
             inputs = {k: v for k, v in batch.items() if k != "labels"}
@@ -47,20 +47,49 @@ def make_train_step(model: Model, ocfg: opt.AdamWConfig):
             return nll + aux, {"nll": nll, "aux": aux}
         return model.loss(params, batch)
 
+    return loss_fn
+
+
+def loss_and_grads(loss_fn, params, batch):
+    """(params as leaves that require grad, loss, metrics, grads with the
+    params' structure; a parameter the loss does not reach gets zeros)."""
+    params = requiring_grad(params)
+    loss, metrics = loss_fn(params, batch)
+    paths, leaves = zip(*tree_items(params))
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    flat = {path: torch.zeros_like(p) if g is None else g
+            for path, p, g in zip(paths, leaves, grads)}
+    return params, loss, metrics, tree_map(lambda _, path: flat[path],
+                                           params, with_path=True)
+
+
+def make_train_step(model: Model, ocfg: opt.AdamWConfig):
+    """step(params, state, batch) -> (new params, new state, metrics);
+    ``batch`` maps names to tensors on the params' device (see
+    :func:`make_loss_fn`)."""
+    loss_fn = make_loss_fn(model)
+
     def step(params, state, batch):
-        params = requiring_grad(params)
-        loss, metrics = loss_fn(params, batch)
-        paths, leaves = zip(*tree_items(params))
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        flat = {path: torch.zeros_like(p) if g is None else g
-                for path, p, g in zip(paths, leaves, grads)}
-        grads = tree_map(lambda _, path: flat[path], params, with_path=True)
-        new_params, state, om = opt.apply_updates(params, grads, state, ocfg)
+        # DTensor params (a mesh's shards) meet plain tensors made inside
+        # the model (positions, masks, constants): those count as
+        # replicated on every rank; plain params are unaffected
+        with implicit_replication():
+            params, loss, metrics, grads = loss_and_grads(loss_fn, params,
+                                                          batch)
+            new_params, new_state, om = opt.apply_updates(params, grads,
+                                                          state, ocfg)
         metrics = {k: v.detach() for k, v in metrics.items()}
-        return requiring_grad(new_params), state, {"loss": loss.detach(),
-                                                    **metrics, **om}
+        return requiring_grad(new_params), new_state, {
+            "loss": loss.detach(), **metrics, **om}
 
     return step
+
+
+def full(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor gathered whole (a collective every rank must join), a plain
+    tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    return x.full_tensor() if isinstance(x, DTensor) else x
 
 
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, Any]:

@@ -430,7 +430,7 @@ def test_single_request_deadline(pair):
     assert got.status == "deadline_exceeded" and got.error
 
 
-def test_device_loop_and_prefix_cache_are_not_ported(pair):
+def test_device_loop_and_prefix_cache_arguments_are_taken(pair):
     """The prefix cache and the fused loop's arguments are taken:
     ``prefix_cache=True`` gives the cold run's output (a repeated prompt
     hits the cache), and an engine without device tables keeps every row

@@ -7,8 +7,9 @@
    the ``repro.`` -> ``repro_torch.`` import rewrite, so they cannot drift;
    a near copy equals its original but for the lines it names;
  - the entry points (the serve CLI with and without ``--checkpoint``, the
-   trainer CLI) refuse to run without ``device="cpu"`` when no card is
-   visible;
+   trainer CLI, its ``--mesh`` and ``--fake-devices``) refuse to run
+   without ``device="cpu"`` when no card is visible, and both CLIs take
+   every flag of the JAX package's;
  - the kernel wrappers take their plain versions on CPU tensors and leave
    the launch counters at 0.
 """
@@ -40,7 +41,44 @@ COPIED = (sorted(p.relative_to(SRC / "repro")
 # faults.py reads the cache lengths of a CUDA tensor, which numpy cannot
 # take without a copy to the host; the docstrings of journal.py and
 # supervisor.py leave out the JAX package's PR and issue numbers.
+# The roofline's analytic FLOP and byte model is the JAX package's line
+# for line; its docstring, the chip's constants and the dry run's records
+# and report files are the H100's and the port's.
 NEAR_COPIES = {
+    "launch/roofline.py": {
+        '"""Roofline analysis of the port, on the H100 '
+        "(``repro.launch.roofline``'s).",
+        "  compute    = FLOPs / (chips * 989e12)            "
+        "[bf16 tensor cores, H100]",
+        "  memory     = HBM bytes / (chips * 3.35e12)",
+        "  collective = per-device collective bytes / 450e9 "
+        "[NVLink, each way]",
+        "The constants are the NVIDIA H100 SXM data sheet's "
+        "(``launch.mesh``), not",
+        "measurements.  The FLOPs and HBM bytes below are the JAX package's",
+        "analytic model, copied line for line, so the two packages' "
+        "rooflines",
+        "differ only by the two chips' constants.  The dry run's own counts",
+        "(``cost.flops_per_device`` from ``torch.utils.flop_counter``) "
+        "cover",
+        "every op it runs, including replicated ones, so they are kept "
+        "beside it.",
+        "   FlopCounterMode on the port's forward in tests);",
+        " - collective bytes come from the dry run's eager step, which "
+        "issues",
+        "   every layer's collectives (``launch.calibrate`` checks the "
+        "count",
+        "   against the JAX package's two-point fit:",
+        "   bytes(R) = base + R * per_layer).",
+        "from repro_torch.launch.mesh import HBM_BW, LINK_BW, "
+        "PEAK_FLOPS_BF16",
+        '    p = ART / "dryrun_torch" / f"{arch}_{shape}_{mesh}.json"',
+        "    coll_t = coll_bytes / LINK_BW          "
+        "# dry-run bytes are per-device",
+        '    "compute_s": ("compute-bound: raise tensor-core use — larger '
+        'per-device "',
+        '    out = ART / "roofline_torch.json"',
+    },
     "serving/faults.py": {
         '    lens = np.asarray(sched.cache["len"].cpu())',
     },
@@ -146,6 +184,11 @@ def test_entry_points_refuse_without_a_card(small_tokenizer):
     from repro_torch.launch import train
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["--smoke", "--steps", "1"])
+    for mesh in ("1x1", "2x2"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            train.main(["--smoke", "--steps", "1", "--mesh", mesh])
+    with pytest.raises(ValueError, match="--device cpu"):
+        train.main(["--smoke", "--mesh", "2x2", "--fake-devices", "4"])
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
@@ -209,3 +252,14 @@ def test_kernel_wrappers_refuse_operands_that_require_grad(name):
         fn(*args)
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
         fn(*args)
+
+
+@pytest.mark.parametrize("cli", ["serve", "train"])
+def test_cli_takes_every_flag_of_the_reference(cli):
+    """The port's serve and trainer CLIs accept every flag of the JAX
+    package's (and add only ``--device`` and ``--dtype``)."""
+    flag = re.compile(r'add_argument\("(--[a-z-]+)"')
+    ref = set(flag.findall((SRC / "repro" / "launch" / f"{cli}.py")
+                           .read_text()))
+    port = set(flag.findall((PORT / "launch" / f"{cli}.py").read_text()))
+    assert ref <= port and port - ref == {"--device", "--dtype"}

@@ -1456,3 +1456,24 @@ def test_train_step_on_card_matches_cpu(cuda_device):
     for path, w in tree_items(want):
         np.testing.assert_allclose(flat[path], w, rtol=0,
                                    atol=2 * ocfg.lr + 1e-6, err_msg=str(path))
+
+
+@pytest.mark.cuda
+def test_mesh_1x1_step_equals_unsharded_step(cuda_device):
+    """The trainer's ``--mesh 1x1``: an NCCL world of one rank over a file
+    store, the params and moments DTensors on a 1 x 1 mesh; its losses and
+    grad norms equal the unsharded trainer's (rtol 1e-5, as the step
+    parity above), and the world is gone after it."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import train
+    flags = ["--smoke", "--steps", "2", "--batch", "4", "--seq", "32",
+             "--dtype", "float32"]
+    plain = train.main(flags)
+    mesh = train.main(flags + ["--mesh", "1x1"])
+    assert not dist.is_initialized()
+    np.testing.assert_allclose(mesh["losses"], plain["losses"], rtol=1e-5)
+    np.testing.assert_allclose(mesh["grad_norms"], plain["grad_norms"],
+                               rtol=1e-5)
+    with pytest.raises(RuntimeError, match="cards"):
+        train.main(flags + ["--mesh", f"{torch.cuda.device_count() + 1}x1"])

@@ -4,7 +4,10 @@ trained a few steps by the JAX package and saved with
 ``repro.training.checkpoint.save`` serves through both CLIs with the same
 prompts, float32 greedy, and the ``IDS`` lines are equal (through the
 port's plain path and its kernel route, which takes the plain versions on
-the CPU).  A checkpoint of another architecture is refused."""
+the CPU).  A checkpoint of another architecture is refused.  The serve
+flags ``--k 2 --opportunistic --analyze warn`` give equal ``IDS`` lines and
+equal ``[analysis]`` verdicts in both CLIs, and ``--analyze strict`` refuses
+the same grammar in both."""
 import dataclasses
 import sys
 
@@ -50,20 +53,32 @@ def _ids(text):
     return [ln for ln in text.splitlines() if ln.startswith("IDS ")]
 
 
-@pytest.fixture(scope="module")
-def reference_ids(ckpt):
+def _run_reference(args):
+    """``repro.launch.serve`` with ``args`` (it reads ``sys.argv``) ->
+    its standard output."""
     import contextlib
     import io
 
     from repro.launch import serve
     argv, out = sys.argv, io.StringIO()
-    sys.argv = ["serve", "--checkpoint", str(ckpt)] + FLAGS
+    sys.argv = ["serve"] + args
     try:
         with contextlib.redirect_stdout(out):
             serve.main()
     finally:
         sys.argv = argv
-    ids = _ids(out.getvalue())
+    return out.getvalue()
+
+
+def _verdicts(text):
+    """The ``[analysis]`` lines without their seconds."""
+    return [ln.rsplit(",", 1)[0] for ln in text.splitlines()
+            if ln.startswith("[analysis] ")]
+
+
+@pytest.fixture(scope="module")
+def reference_ids(ckpt):
+    ids = _ids(_run_reference(["--checkpoint", str(ckpt)] + FLAGS))
     assert len(ids) == 3
     return ids
 
@@ -85,3 +100,28 @@ def test_checkpoint_of_another_arch_is_refused(ckpt):
     with pytest.raises(ValueError, match="--no-smoke"):
         serve.main(["--device", "cpu", "--checkpoint", str(ckpt),
                     "--no-smoke"])
+
+
+SERVE_FLAGS = ["--k", "2", "--opportunistic", "--analyze", "warn"]
+
+
+def test_serve_flags_match_reference(ckpt, capsys):
+    from repro_torch.launch import serve
+    want = _run_reference(["--checkpoint", str(ckpt)] + FLAGS + SERVE_FLAGS)
+    serve.main(["--device", "cpu", "--checkpoint", str(ckpt)] + FLAGS
+               + SERVE_FLAGS)
+    got = capsys.readouterr().out
+    assert len(_ids(want)) == 3 and _ids(got) == _ids(want)
+    assert _verdicts(want) == _verdicts(got) and len(_verdicts(got)) == 1
+
+
+def test_analyze_strict_refuses_the_same_grammar(ckpt):
+    from repro.core.analysis import AnalysisError as JAnalysisError
+    from repro_torch.core.analysis import AnalysisError
+    from repro_torch.launch import serve
+    strict = ["--checkpoint", str(ckpt), "--grammar", "json", "--analyze",
+              "strict", "--prompts", "1", "--max-tokens", "4"]
+    with pytest.raises(JAnalysisError, match="'json' failed"):
+        _run_reference(strict)
+    with pytest.raises(AnalysisError, match="'json' failed"):
+        serve.main(["--device", "cpu"] + strict)

@@ -120,6 +120,33 @@ def test_mixed_domino_and_unconstrained_rows_match(engines):
           teng.generate_batch(treqs, max_batch=3))
 
 
+def test_opportunistic_rows_refuse_a_choice_past_the_tokenizer(
+        small_tokenizer, json_grammar):
+    """A head wider than the tokenizer (the serve CLI's ``--no-smoke``
+    keeps a published head): the scheduler's raw argmax, which an
+    opportunistic row proposes, may land on a column that is no token; the
+    row then takes the masked pick, so it picks what a masked row picks.
+    The extra columns are made to win every raw argmax."""
+    tok = small_tokenizer
+    v = tok.vocab_size
+    tcfg = TModelConfig(arch_id="wide", family="dense", vocab_size=2 * v,
+                        **BASE)
+    model = t_build_model(tcfg)
+    params = model.init(device="cpu")
+    with torch.no_grad():
+        params["lm_head"][:, v:] = 10 * params["lm_head"][:, :v].abs().max()
+    eng = TServingEngine(model, params, tok, max_len=256, device="cpu")
+    eng.register_grammar("json", json_grammar)
+    runs = [eng.generate_batch(
+        [TRequest(p, TConstraintSpec(grammar="json", mode="domino", k=2,
+                                     opportunistic=opp),
+                  TDecodeParams(max_tokens=10)) for p in PROMPTS[:3]],
+        max_batch=3) for opp in (True, False)]
+    assert all(r.status == "ok" and r.n_tokens for r in runs[0])
+    assert [r.token_ids for r in runs[0]] == [r.token_ids for r in runs[1]]
+    assert all(t < v for r in runs[0] for t in r.token_ids)
+
+
 def test_speculative_requests_are_served(engines):
     """The speculative request is served on both paths, equal to the JAX
     engine's result, proposals and acceptances included."""

@@ -372,5 +372,6 @@ def test_launch_train_runs_three_steps_on_the_cpu(tmp_path, capsys):
     meta = json.loads((tmp_path / "meta.json").read_text())
     assert meta["arch"] == "stablelm-1.6b-smoke"
     assert (tmp_path / "tokenizer.json").exists()
+    assert train.parse_args(["--mesh", "2x4"]).mesh == "2x4"
     with pytest.raises(SystemExit):
-        train.parse_args(["--mesh", "2x4"])
+        train.parse_args(["--mesh", "2by4"])

@@ -120,3 +120,50 @@ def byte_mask_case(b, v, seed):
     bits = (words[:, :, None] >> np.arange(32, dtype=np.uint32)) & 1
     mask = bits.reshape(b, -1)[:, :v].astype(bool)
     return logits, mask, words
+
+
+# -- a rank of a sharded training world ------------------------------------------
+
+
+def sharded_train_step(rank, cases, mesh_shape, ocfg_kw):
+    """One AdamW step of the port on a (data, model) mesh of this world's
+    ranks for each case ``(name, cfg, numpy params, numpy batch)``: the
+    params bridged with ``params_from_numpy``, sharded by the port's rules,
+    a step on the batch split over data, the params gathered.  Rank 0
+    returns {name: (gathered params as numpy in the JAX package's layout,
+    loss, grad norm, the local bytes of one param shard a rank)}."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch import sharding as shr
+    from repro_torch.models import act_sharding, build_model
+    from repro_torch.models.convert import (params_from_numpy,
+                                            params_to_numpy, tree_items)
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_loop import full, make_train_step
+
+    mesh = init_device_mesh("cpu", mesh_shape,
+                            mesh_dim_names=("data", "model"))
+    shr.set_axis_sizes(mesh)
+    act_sharding.register_mesh(mesh)
+    act_sharding.configure(("data",), "model")
+    out = {}
+    for name, cfg, np_params, np_batch in cases:
+        model = build_model(cfg)
+        params = params_from_numpy(np_params, cfg, device="cpu")
+        specs = shr.param_specs(cfg, params)
+        params = shr.shard_tree(mesh, params, specs)
+        batch = {k: torch.from_numpy(v) for k, v in np_batch.items()}
+        batch = shr.shard_tree(mesh, batch, shr.batch_specs(
+            cfg, batch, batch["tokens"].shape[0], ("data",)))
+        step = make_train_step(model, opt.AdamWConfig(**ocfg_kw))
+        new, _, met = step(params, opt.init_state(params), batch)
+        local = sum(p.to_local().numel() * p.to_local().element_size()
+                    for _, p in tree_items(params))
+        got = params_to_numpy(shr.gather_tree(new), cfg)
+        loss, gnorm = float(full(met["loss"])), float(full(met["grad_norm"]))
+        if rank == 0:
+            out[name] = (got, loss, gnorm, local)
+    act_sharding.register_mesh(None)
+    return out
+
